@@ -1,0 +1,53 @@
+"""Card-only tests of tetraear_tpu_torch: the CUDA kernels have no CPU
+mode, so these skip on a machine without an NVIDIA GPU.
+
+They need no JAX.  On the card, where JAX may be absent, run them
+without the suite's JAX conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(smoke):
+    """Each CUDA kernel vs its plain version at the fleet geometry
+    (C=1024, 36.864 MHz); phase_kernels fails on any excess error."""
+    res = smoke.phase_kernels(smoke.FS_FLEET, 1024, seed=1, reps=2)
+    for r in res.values():
+        assert r["max_abs_err"] <= r["tol"]
+
+
+@pytest.mark.cuda
+def test_card_decode_equals_cpu_decode(smoke):
+    """Pipeline.run_offline on the card gives the CPU run's frames and
+    every carrier's SDS text (golden 8-carrier capture, 2.304 MHz)."""
+    smoke.phase_decode_small()
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_cpu_mixed_inputs(smoke):
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    tail = torch.zeros(2, 8, 128, device="cuda")
+    x = torch.zeros(2, 120, 128)
+    with pytest.raises(ValueError):
+        ck.fft2p_planes_spliced(tail, x, 128, 128, 2)

@@ -1,0 +1,505 @@
+"""The receive path's hand-written CUDA kernels, their plain PyTorch
+versions and their build.
+
+Three kernels carry the fused receive path, each replacing one Pallas
+kernel of ``tetraear_tpu/dsp/pallas_kernels.py``:
+
+  ``fft2p_planes_spliced``  csrc/fft2p.cu       fft2p_planes_spliced
+                                                 (+ fft2p_planes, o2 = 0)
+  ``band_synth``            csrc/band_synth.cu  band_synth(phasor_drop=)
+  ``fused_backhalf``        csrc/backhalf.cu    fused_backhalf
+
+Dispatch rule: a wrapper given CPU tensors runs the plain PyTorch
+version of its function; given CUDA tensors it launches the kernel or
+raises.  There is no fallback between the two.  ``launches`` counts the
+kernel launches of each wrapper (the plain versions do not count).
+
+The kernels are CUDA C++ for sm_90a with a plain C interface, compiled
+by ``nvcc`` at first use into ``build/tetraear_tpu_torch/`` of the
+checkout (keyed by a hash of the sources and flags) and loaded with
+ctypes.  Nothing is compiled or loaded at import time.  Launches go on
+PyTorch's current stream and do not synchronise; a wrapper may drop its
+scratch tensors on return because the caching allocator hands freed
+memory only to work queued later on the same stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tetraear_tpu_torch.dsp import framescan
+
+TAILBITS = 1200
+
+launches = {"fft2p": 0, "band_synth": 0, "fused_backhalf": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("common.cuh", "scan.cuh", "fft2p.cu", "band_synth.cu",
+            "backhalf.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
+    "tetraear_tpu_torch"
+# -fmad=false: no multiply-add contraction, so every float expression
+# rounds as the plain PyTorch version's separate ops do
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit's nvcc (PATH or /usr/local/cuda)")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    key = h.hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libtetraear_kernels_{key}.so"
+    t0 = time.time()
+    log = ""
+    if not so.exists():
+        tmp = so.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(_CSRC / s) for s in _SOURCES if s.endswith(".cu")]]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log = r.stdout + r.stderr
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tt_fft2p.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.tt_band_synth.argtypes = ([vp, cl, vp, ci, vp, vp, vp, vp, vp]
+                                  + [ci] * 3 + [vp])
+    lib.tt_fused_backhalf.argtypes = [vp] * 14 + [ci] * 6 + [vp]
+    for fn in (lib.tt_fft2p, lib.tt_band_synth, lib.tt_fused_backhalf):
+        fn.restype = ci
+    build_info.update(path=str(so), seconds=time.time() - t0, log=log)
+    _lib = lib
+    return lib
+
+
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    """Count and launch kernel ``name`` on ``dev``'s current stream (with
+    ``dev`` the current device); raise on the C entry's CUDA error."""
+    launches[name] += 1
+    with torch.cuda.device(dev):
+        rc = fn(*args, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name(dev)})")
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# argument checks and dispatch
+# ---------------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, shape: tuple, dtype) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _route(*tensors) -> str:
+    """'cpu' (plain version) or 'cuda' (kernel) from the tensors' device;
+    mixed or other devices raise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError("tensors on several devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+_TW_CACHE: dict = {}
+
+
+def _twiddles(n: int, dev: torch.device) -> torch.Tensor:
+    """(n/2, 2) float32 table exp(-2 pi i k / n), from float64."""
+    key = (n, str(dev))
+    if key not in _TW_CACHE:
+        k = np.arange(n // 2)
+        w = np.exp(-2j * np.pi * k / n)
+        tab = np.stack([w.real, w.imag], axis=1).astype(np.float32)
+        _TW_CACHE[key] = torch.from_numpy(tab).to(dev)
+    return _TW_CACHE[key]
+
+
+def _log2_exact(n: int, what: str) -> int:
+    lg = int(round(math.log2(n))) if n > 0 else -1
+    if n <= 0 or 1 << lg != n:
+        raise ValueError(f"{what}={n} must be a power of two")
+    return lg
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: wideband FFT, four-step, spliced
+# ---------------------------------------------------------------------------
+
+def fft2p_planes_spliced(tail_p: torch.Tensor, x_p: torch.Tensor, n1: int,
+                         n2: int, wrap_k1: int = 0) -> torch.Tensor:
+    """Forward nfft-point DFT (nfft = n1 n2) of the overlap-save window
+    [tail rows ++ block rows] -> natural-order spectrum planes.
+
+    tail_p (2, o2, n1) and x_p (2, n2 - o2, n1) are planar float32 rows
+    of the (n2, n1) row-major window; o2 = 0 is the unspliced transform
+    (the JAX ``fft2p_planes``).  Returns (2, (n1 + wrap_k1) n2 / 128,
+    128) float32: bins 0..nfft-1, then bins 0..wrap_k1 n2 - 1 again.
+
+    Replaces ``fft2p_planes_spliced`` / ``fft2p_planes``
+    (tetraear_tpu/dsp/pallas_kernels.py), which run the four-step
+    transform as bf16x3 MXU matmuls; the port runs float32 FFTs.
+    Bound: device memory, two read+write passes over 8 nfft bytes.
+    Design: csrc/fft2p.cu (pass 1 column FFTs with the splice and the
+    w^{i1 k2} twiddle, pass 2 row FFTs writing the natural-order planes
+    and the wrap rows)."""
+    o2 = tail_p.shape[1] if tail_p.dim() == 3 else -1
+    _check(tail_p, "tail_p", (2, o2, n1), torch.float32)
+    _check(x_p, "x_p", (2, n2 - o2, n1), torch.float32)
+    if n1 % 128 or n2 % 128 or not 0 <= wrap_k1 <= n1:
+        raise ValueError(f"fft2p needs 128 | n1, n2 and wrap <= n1 "
+                         f"(got {n1}, {n2}, {wrap_k1})")
+    if _route(tail_p, x_p) == "cpu":
+        return fft2p_plain(tail_p, x_p, n1, n2, wrap_k1)
+    lg1 = _log2_exact(n1, "n1")
+    lg2 = _log2_exact(n2, "n2")
+    if lg1 > 14 or lg2 > 14:
+        raise ValueError(f"fft2p kernel: n1, n2 <= 16384 (got {n1}, {n2})")
+    dev = x_p.device
+    lib = build()
+    cols = max(1, min(32, 16384 // n2))
+    rows = max(1, min(32, 16384 // n1))
+    g = torch.empty((2, n2, n1), dtype=torch.float32, device=dev)
+    out = torch.empty((2, (n1 + wrap_k1) * n2 // 128, 128),
+                      dtype=torch.float32, device=dev)
+    _launch("fft2p", dev, lib.tt_fft2p, _ptr(tail_p), _ptr(x_p), _ptr(g),
+            _ptr(out), _ptr(_twiddles(n2, dev)), _ptr(_twiddles(n1, dev)),
+            n1, n2, o2, wrap_k1, cols, rows)
+    return out
+
+
+def fft2p_plain(tail_p, x_p, n1, n2, wrap_k1):
+    """Plain version of fft2p_planes_spliced: torch.fft of the window."""
+    win = torch.cat([tail_p, x_p], dim=1).reshape(2, n1 * n2)
+    big = torch.fft.fft(torch.complex(win[0], win[1]))
+    ext = torch.cat([big, big[:wrap_k1 * n2]])
+    return torch.stack([ext.real, ext.imag]).reshape(2, -1, 128)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: band synthesis + timing phasor
+# ---------------------------------------------------------------------------
+
+def band_synth(planes: torch.Tensor, h1_planes: torch.Tensor,
+               row_starts: torch.Tensor, d_shift: torch.Tensor,
+               m1c: torch.Tensor, m2re: torch.Tensor, m2im: torch.Tensor,
+               twre: torch.Tensor, twim: torch.Tensor, rows_per_band: int,
+               phasor_drop: int) -> tuple:
+    """Per carrier: gather P = rows_per_band spectrum rows at
+    row_starts[c], multiply by h1_planes[:, d_shift[c]], inverse n_band
+    DFT (n_band = 128 P), and the Oerder-Meyr phasor
+    sum_{k >= phasor_drop} |y_k|^2 e^{-j pi k / 2}.
+
+    planes (2, R, 128) f32, h1_planes (2, D, P, 128) f32, row_starts and
+    d_shift (C,) int32, m1c (2P, 2P), m2re/m2im (128, 128), twre/twim
+    (128, P) f32 (the channelizer's Cooley-Tukey tables).  Returns
+    y (C, 2, 128, P) f32 — sample k = s + P t at [c, :, t, s] — and
+    ph (C, 1, 128) f32 with the phasor in lanes 0/1.  row_starts must
+    keep every band inside the planes (the channelizer's do).
+
+    Replaces ``band_synth(..., phasor_drop=drop)``
+    (tetraear_tpu/dsp/pallas_kernels.py).  Bound: device memory (64 KB
+    in and out per carrier; the rolled filter table stays in L2).
+    Design: csrc/band_synth.cu computes the transform as one float32
+    radix-2 FFT per carrier in shared memory; the Cooley-Tukey tables
+    define it for the plain version only."""
+    c = row_starts.shape[0] if row_starts.dim() == 1 else -1
+    p = int(rows_per_band)
+    n_rolls = h1_planes.shape[1] if h1_planes.dim() == 4 else -1
+    r_rows = planes.shape[1] if planes.dim() == 3 else -1
+    _check(planes, "planes", (2, r_rows, 128), torch.float32)
+    _check(h1_planes, "h1_planes", (2, n_rolls, p, 128), torch.float32)
+    _check(row_starts, "row_starts", (c,), torch.int32)
+    _check(d_shift, "d_shift", (c,), torch.int32)
+    _check(m1c, "m1c", (2 * p, 2 * p), torch.float32)
+    for name, t in (("m2re", m2re), ("m2im", m2im)):
+        _check(t, name, (128, 128), torch.float32)
+    for name, t in (("twre", twre), ("twim", twim)):
+        _check(t, name, (128, p), torch.float32)
+    if phasor_drop % 4 or p % 4:
+        raise ValueError("phasor fusion needs drop % 4 == 0 and "
+                         f"P % 4 == 0 (drop={phasor_drop}, P={p})")
+    if _route(planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im,
+              twre, twim) == "cpu":
+        return band_synth_plain(planes, h1_planes, row_starts, d_shift,
+                                m1c, m2re, m2im, twre, twim, p,
+                                phasor_drop)
+    lg = _log2_exact(128 * p, "n_band")
+    if lg > 14:
+        raise ValueError(f"band_synth kernel: n_band <= 16384 (got {128 * p})")
+    dev = planes.device
+    lib = build()
+    y = torch.empty((c, 2, 128, p), dtype=torch.float32, device=dev)
+    ph = torch.empty((c, 1, 128), dtype=torch.float32, device=dev)
+    _launch("band_synth", dev, lib.tt_band_synth, _ptr(planes),
+            r_rows * 128, _ptr(h1_planes), n_rolls, _ptr(row_starts),
+            _ptr(d_shift), _ptr(y), _ptr(ph), _ptr(_twiddles(128 * p, dev)),
+            lg, int(phasor_drop), c)
+    return y, ph
+
+
+def band_synth_plain(planes, h1_planes, row_starts, d_shift, m1c, m2re,
+                     m2im, twre, twim, p, phasor_drop):
+    """Plain version of band_synth: the reference's three-matmul
+    Cooley-Tukey synthesis (i = l + 128 r, k = s + P t) in float32."""
+    c = row_starts.shape[0]
+    dev = planes.device
+    rows = (row_starts.long()[:, None]
+            + torch.arange(p, device=dev)[None, :])          # (C, P)
+    nat = planes[:, rows, :]                                 # (2, C, P, 128)
+    h = h1_planes[:, d_shift.long()]                         # (2, C, P, 128)
+    bre = nat[0] * h[0] - nat[1] * h[1]
+    bim = nat[0] * h[1] + nat[1] * h[0]
+    a = torch.cat([bre, bim], dim=1)                         # (C, 2P, 128)
+    t2 = torch.matmul(a.transpose(1, 2), m1c)                # (C, 128, 2P)
+    tre, tim = t2[..., :p], t2[..., p:]
+    ure = tre * twre - tim * twim                            # (C, 128, P)
+    uim = tre * twim + tim * twre
+    u2 = torch.cat([ure, uim], dim=2)
+    u2s = torch.cat([-uim, ure], dim=2)
+    y2 = torch.matmul(m2re, u2) + torch.matmul(m2im, u2s)    # (C, 128, 2P)
+    yre, yim = y2[..., :p], y2[..., p:]
+    y = torch.stack([yre, yim], dim=1).contiguous()          # (C, 2, 128, P)
+    k = (torch.arange(p, device=dev)[None, :]
+         + p * torch.arange(128, device=dev)[:, None])       # (128, P)
+    live = (k >= phasor_drop).to(torch.float32)
+    s4 = torch.arange(p, device=dev) % 4
+    wre = (s4 == 0).to(torch.float32) - (s4 == 2).to(torch.float32)
+    wim = (s4 == 3).to(torch.float32) - (s4 == 1).to(torch.float32)
+    pw = yre * yre + yim * yim
+    ph = torch.zeros((c, 1, 128), dtype=torch.float32, device=dev)
+    ph[:, 0, 0] = (pw * wre * live).sum(dim=(1, 2))
+    ph[:, 0, 1] = (pw * wim * live).sum(dim=(1, 2))
+    return y, ph
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: fused back half
+# ---------------------------------------------------------------------------
+
+def z_rows_for(p: int) -> int:
+    """Rows of 128 bits in the scan row: 1200 tail bits + 2 bits for
+    each of the 128 P/4 symbol slots + 256 bits of zero pad."""
+    return -(-(TAILBITS + 2 * 128 * (p // 4) + 256) // 128)
+
+
+_SCAN_CACHE: dict = {}
+
+
+def _scan_tables(dev: torch.device, words: bool):
+    key = (str(dev), words)
+    if key not in _SCAN_CACHE:
+        if words:
+            _SCAN_CACHE[key] = torch.from_numpy(
+                framescan.scan_words().view(np.int32)).to(dev)
+        else:
+            _SCAN_CACHE[key] = tuple(torch.from_numpy(t).to(dev)
+                                     for t in framescan.scan_taps())
+    return _SCAN_CACHE[key]
+
+
+def fused_backhalf(y: torch.Tensor, bt: torch.Tensor, rr: torch.Tensor,
+                   rc: torch.Tensor, sc: torch.Tensor, bsel: torch.Tensor,
+                   dsel: torch.Tensor, drop: int, k_max: int) -> tuple:
+    """Timing interpolation, pi/4-DQPSK and the even-position sync + CRC
+    scan on the raw band-synthesis planes.
+
+    y (C, 2, 128, P) f32; bt (C, TR, 128) f32 {0,1} carried tail bits
+    (the first 1200 are read); rr (C, 2, 128, 1) and rc (C, 2, 1, P) f32
+    row and lane ramps; sc (C, 16) f32 [c0..c3 Catmull-Rom weights,
+    n_valid, prev_re, prev_im, tail_re 0..3, tail_im 0..3, 0]; bsel,
+    dsel (C,) int32.  Returns (corr (C, M, 64) f32, err (C, M, 64) i32,
+    soft (C, 2, P/4, 128) f32, bt2 (C, TR, 128) f32, last (C, 2, 1, P)
+    f32, misc (C, 1, 128) f32): element [m, j] of corr / err is even
+    bit position pe = 64 m + j of the scan row z; soft[c, :, u, t] is
+    symbol P/4 t + u; last is the corrected last sample row; misc lanes
+    0/1 the last valid symbol (0 when there is none).
+
+    Replaces ``fused_backhalf`` (tetraear_tpu/dsp/pallas_kernels.py).
+    Bound: device memory (64 KB in, ~40 KB out per carrier).  Design:
+    csrc/backhalf.cu, one block per carrier with the corrected band in
+    shared memory, indexed interpolation, bit-packed popcount scan
+    (csrc/scan.cuh, whose numpy reference is
+    framescan.host_scan_rows_even)."""
+    c = y.shape[0] if y.dim() == 4 else -1
+    p = y.shape[3] if y.dim() == 4 else -1
+    tr = bt.shape[1] if bt.dim() == 3 else -1
+    _check(y, "y", (c, 2, 128, p), torch.float32)
+    _check(bt, "bt", (c, tr, 128), torch.float32)
+    _check(rr, "rr", (c, 2, 128, 1), torch.float32)
+    _check(rc, "rc", (c, 2, 1, p), torch.float32)
+    _check(sc, "sc", (c, 16), torch.float32)
+    _check(bsel, "bsel", (c,), torch.int32)
+    _check(dsel, "dsel", (c,), torch.int32)
+    sy = p // 4
+    if drop % 4 or drop < 8 or p % 4:
+        raise ValueError(f"fused_backhalf needs drop % 4 == 0, "
+                         f"drop >= 8, P % 4 == 0 (drop={drop}, P={p})")
+    if k_max > 128 * sy:
+        raise ValueError(f"k_max {k_max} exceeds symbol capacity "
+                         f"{128 * sy}")
+    if tr * 128 < TAILBITS:
+        raise ValueError(f"bt holds {tr * 128} < {TAILBITS} tail bits")
+    z_rows = z_rows_for(p)
+    if _route(y, bt, rr, rc, sc, bsel, dsel) == "cpu":
+        return fused_backhalf_plain(y, bt, rr, rc, sc, bsel, dsel, drop,
+                                    k_max, z_rows)
+    if 128 * p > 16384:
+        raise ValueError(f"fused_backhalf kernel: n_band <= 16384 "
+                         f"(got {128 * p})")
+    dev = y.device
+    lib = build()
+    m = z_rows - 2
+    corr = torch.empty((c, m, 64), dtype=torch.float32, device=dev)
+    err = torch.empty((c, m, 64), dtype=torch.int32, device=dev)
+    soft = torch.empty((c, 2, sy, 128), dtype=torch.float32, device=dev)
+    bt2 = torch.empty((c, tr, 128), dtype=torch.float32, device=dev)
+    last = torch.empty((c, 2, 1, p), dtype=torch.float32, device=dev)
+    misc = torch.empty((c, 1, 128), dtype=torch.float32, device=dev)
+    _launch("fused_backhalf", dev, lib.tt_fused_backhalf, _ptr(y), _ptr(bt),
+            _ptr(rr), _ptr(rc), _ptr(sc), _ptr(bsel), _ptr(dsel),
+            _ptr(_scan_tables(dev, True)), _ptr(corr), _ptr(err),
+            _ptr(soft), _ptr(bt2), _ptr(last), _ptr(misc), p, int(drop),
+            int(k_max), tr, z_rows, c)
+    return corr, err, soft, bt2, last, misc
+
+
+def fused_backhalf_plain(y, bt, rr, rc, sc, bsel, dsel, drop, k_max,
+                         z_rows):
+    """Plain version of fused_backhalf: gathers for the interpolation
+    and a stride-2 conv for the scan, in the kernel's float order."""
+    c, _, _, p = y.shape
+    dev = y.device
+    n = 128 * p
+    sy = p // 4
+    ns = 128 * sy
+    tr = bt.shape[1]
+    cor_re = rr[:, 0] * rc[:, 0] - rr[:, 1] * rc[:, 1]       # (C, 128, P)
+    cor_im = rr[:, 0] * rc[:, 1] + rr[:, 1] * rc[:, 0]
+    xr = (y[:, 0] * cor_re - y[:, 1] * cor_im).reshape(c, n)
+    xi = (y[:, 0] * cor_im + y[:, 1] * cor_re).reshape(c, n)
+    d0 = drop - 4
+    xr[:, d0:d0 + 4] = sc[:, 7:11]
+    xi[:, d0:d0 + 4] = sc[:, 11:15]
+    last = torch.stack([xr[:, n - p:], xi[:, n - p:]], dim=1)[:, :, None]
+
+    i = torch.arange(ns, device=dev)
+    base = d0 + 4 * i[None, :] + bsel.long()[:, None]        # (C, NS)
+
+    def tap(j):
+        idx = (base + j) % n
+        return (torch.gather(xr, 1, idx), torch.gather(xi, 1, idx))
+
+    taps = [tap(j) for j in range(4)]
+    cw = [sc[:, j:j + 1] for j in range(4)]
+    sym_re = ((cw[0] * taps[0][0] + cw[1] * taps[1][0])
+              + cw[2] * taps[2][0]) + cw[3] * taps[3][0]
+    sym_im = ((cw[0] * taps[0][1] + cw[1] * taps[1][1])
+              + cw[2] * taps[2][1]) + cw[3] * taps[3][1]
+    prv_re = torch.cat([sc[:, 5:6], sym_re[:, :-1]], dim=1)
+    prv_im = torch.cat([sc[:, 6:7], sym_im[:, :-1]], dim=1)
+    dre = sym_re * prv_re + sym_im * prv_im
+    dim_ = sym_im * prv_re - sym_re * prv_im
+    mag = torch.sqrt(dre * dre + dim_ * dim_) + 1e-12
+    soft = torch.stack([-dim_ / mag, -dre / mag], dim=1)     # (C, 2, NS)
+    soft = soft.reshape(c, 2, 128, sy).transpose(2, 3).contiguous()
+
+    fi = i.to(torch.float32)[None, :]
+    nv = sc[:, 4:5]
+    valid = fi < nv
+    msb = (valid & (dim_ < 0)).to(torch.float32)
+    lsb = (valid & (dre < 0)).to(torch.float32)
+    sel = fi == nv - 1.0
+    misc = torch.zeros((c, 1, 128), dtype=torch.float32, device=dev)
+    misc[:, 0, 0] = torch.where(sel, sym_re, 0.0).sum(dim=1)
+    misc[:, 0, 1] = torch.where(sel, sym_im, 0.0).sum(dim=1)
+
+    zb = z_rows * 128
+    z = torch.zeros((c, zb), dtype=torch.float32, device=dev)
+    z[:, :TAILBITS] = bt.reshape(c, -1)[:, :TAILBITS]
+    z[:, TAILBITS:TAILBITS + 2 * ns:2] = msb
+    z[:, TAILBITS + 1:TAILBITS + 2 * ns:2] = lsb
+
+    taps_k, c0, zs = _scan_tables(dev, False)
+    m = z_rows - 2
+    out = torch.nn.functional.conv1d(z[:, None, :], taps_k, stride=2)
+    out = out[:, :, :64 * m]                                 # (C, 19, 64M)
+    n_agree = torch.maximum(out[:, 17] + zs[0], out[:, 18] + zs[1])
+    corr = n_agree * (1.0 / framescan.SYNC_LEN)
+    par = torch.remainder(out[:, :16], 2.0)
+    err = torch.abs(par - c0[None, :, None]).sum(dim=1)
+    ones = out[:, 16]
+    deg = (ones == 0.0) | (ones == float(framescan.DATA_BITS))
+    err = torch.where(deg, 99.0, err)
+    corr = corr.reshape(c, m, 64)
+    err = torch.round(err).to(torch.int32).reshape(c, m, 64)
+
+    off = 2 * k_max - 4 + 2 * dsel.long()                     # (C,)
+    src = off[:, None] + torch.arange(TAILBITS, device=dev)[None, :]
+    zpad = torch.cat([z, torch.zeros((c, TAILBITS), device=dev)], dim=1)
+    bt2 = torch.zeros((c, tr * 128), dtype=torch.float32, device=dev)
+    bt2[:, :TAILBITS] = torch.gather(zpad, 1, src)
+    return (corr, err, soft, bt2.reshape(c, tr, 128), last.contiguous(),
+            misc)
