@@ -55,8 +55,9 @@ def runs():
         jax_out.append(out)
         jax_states.append(jax.tree_util.tree_map(np.asarray, state))
 
-    pf = FusedRx(CarrierBankDemod(fs=FS, freqs_hz=OFFSETS))
-    pstate = convert.state_from_jax(jax_states[0])
+    pf = FusedRx(CarrierBankDemod(fs=FS, freqs_hz=OFFSETS, frontend="fft"),
+                 device="cpu")
+    pstate = convert.state_from_jax(jax_states[0], device="cpu")
     port_out, port_states = [None], [None]
     for x in blocks[1:]:
         out, pstate = pf.step(torch.from_numpy(x), pstate)

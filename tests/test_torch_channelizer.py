@@ -41,7 +41,7 @@ TABLES = ("k_c", "residual_hz", "band_start", "h1_band", "d_shift",
 def banks(request):
     fs, c = GEOMETRIES[request.param]
     return (JaxBank(fs=fs, freqs_hz=grid(c), frontend="fft"),
-            CarrierBankDemod(fs=fs, freqs_hz=grid(c)))
+            CarrierBankDemod(fs=fs, freqs_hz=grid(c), frontend="fft"))
 
 
 def test_geometry_equal(banks):
@@ -64,7 +64,7 @@ def test_table_equal(banks, name):
 
 def test_tables_from_jax_equal_port_tables(banks):
     jb, pb = banks
-    from_jax = convert.tables_from_jax(jb.channelizer)
+    from_jax = convert.tables_from_jax(jb.channelizer, device="cpu")
     for name, t in from_jax.items():
         own = torch.from_numpy(np.asarray(getattr(pb.channelizer, name)))
         assert torch.equal(t, own), name
@@ -82,7 +82,7 @@ def test_fused_geometry_and_init_state(banks):
     FusedRx (state compared through convert.state_from_jax)."""
     jb, pb = banks
     jf = jax_backhalf.FusedRx(jb)
-    pf = FusedRx(pb)
+    pf = FusedRx(pb, device="cpu")
     assert (pf.p, pf.sy, pf.drop, pf.k_max, pf.n_corr, pf.n_err) == \
         (jf.p, jf.sy, jf.drop, jf.k_max, jf.n_corr, jf.n_err)
     np.testing.assert_array_equal(pf.rc_planes.numpy(), jf._rc_planes)
@@ -91,7 +91,8 @@ def test_fused_geometry_and_init_state(banks):
     import jax
     want = jax.tree_util.tree_map(np.asarray, jf.init_state())
     got = convert.state_to_numpy(pf.init_state())
-    conv = convert.state_to_numpy(convert.state_from_jax(want))
+    conv = convert.state_to_numpy(
+        convert.state_from_jax(want, device="cpu"))
     for tree in (got, conv):
         flat_got = jax.tree_util.tree_leaves_with_path(tree)
         for path, leaf in flat_got:
@@ -109,18 +110,21 @@ def _message(fn):
 
 def test_ineligible_rate_raises_jax_message():
     """A rate with resample stages (2.4 Msps: 150 kHz channel) is not
-    fused-eligible; the port raises the JAX FusedRx message."""
+    fused-eligible; the port's FusedRx raises the JAX FusedRx message
+    (the bank itself builds: the classic chain serves it)."""
     want = _message(lambda: jax_backhalf.FusedRx(
         JaxBank(fs=2.4e6, freqs_hz=[12_500.0], frontend="fft")))
-    got = _message(lambda: CarrierBankDemod(fs=2.4e6, freqs_hz=[12_500.0]))
+    got = _message(lambda: FusedRx(CarrierBankDemod(
+        fs=2.4e6, freqs_hz=[12_500.0], frontend="fft"), device="cpu"))
     assert got == want and "72 kHz" in got
 
 
 def test_conv_frontend_and_afc_raise_jax_messages():
-    assert "72 kHz" in _message(lambda: CarrierBankDemod(
-        fs=2.304e6, freqs_hz=[12_500.0], frontend="conv"))
+    assert "72 kHz" in _message(lambda: FusedRx(CarrierBankDemod(
+        fs=2.304e6, freqs_hz=[12_500.0], frontend="conv"), device="cpu"))
     want = _message(lambda: jax_backhalf.FusedRx(JaxBank(
         fs=2.304e6, freqs_hz=[12_500.0], frontend="fft", afc=True)))
     got = _message(lambda: FusedRx(CarrierBankDemod(
-        fs=2.304e6, freqs_hz=[12_500.0], afc=True)))
+        fs=2.304e6, freqs_hz=[12_500.0], frontend="fft", afc=True),
+        device="cpu"))
     assert got == want and "AFC" in got

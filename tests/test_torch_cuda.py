@@ -38,6 +38,33 @@ def test_kernels_match_plain_on_card(smoke):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["band_synth_y", "band_synth_ph",
+                                  "frame_scan_even", "band_extract_rows",
+                                  "band_extract"])
+def test_classic_chain_kernels_match_plain_on_card(smoke, name):
+    """The classic chain's kernels at a small fused-eligible geometry
+    (C=8, 2.304 MHz): scan planes and extracted bands bit-identical to
+    the plain versions, synthesis within its tolerance."""
+    res = smoke.phase_kernels(smoke.FS_SMALL, 8, seed=3, reps=2)
+    assert res[name]["max_abs_err"] <= res[name]["tol"]
+    assert res[name]["bound_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_classic_decode_on_card_equals_cpu(smoke):
+    """The off-air fixture through the defaults (conv, AFC) and the fft
+    frontend on the card: frames equal to the CPU run, crc_pass >= 16."""
+    counts = smoke.phase_decode_rtl()
+    assert counts["conv"]["frame_scan_even"] > 0
+    assert counts["fft"]["band_synth_y"] > 0
+
+
+@pytest.mark.cuda
+def test_element_extraction_run_on_card(smoke):
+    assert smoke.phase_decode_element()["band_extract"] > 0
+
+
+@pytest.mark.cuda
 def test_card_decode_equals_cpu_decode(smoke):
     """Pipeline.run_offline on the card gives the CPU run's frames and
     every carrier's SDS text (golden 8-carrier capture, 2.304 MHz)."""

@@ -1,0 +1,232 @@
+"""The port's own copies of the host modules, and its two import rules.
+
+tetraear_tpu_torch imports nothing of tetraear_tpu: it keeps its own
+copy of every host module it needs (frame layer, filter design, golden
+transmitter, sources, TEA, logging).  A copy may lose comments and
+docstrings but not drift in code: each case compares the syntax tree of
+a copy with the original's after the package name is normalised and
+docstrings are dropped, function by function, and lists the functions
+that differ on purpose (places that reached JAX or a module that is not
+ported yet).
+
+Two guards besides: a subprocess imports every module of the port and
+finds neither ``jax`` nor any ``tetraear_tpu`` module loaded; and on a
+machine without a CUDA device the port's entry points raise instead of
+running on the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+JAX_PKG = REPO / "tetraear_tpu"
+PORT = REPO / "tetraear_tpu_torch"
+
+# module -> qualified names whose code differs on purpose
+COPIES = {
+    "dsp/design.py": (),
+    "frame/burst.py": (),
+    "frame/crc.py": (),
+    "frame/lip.py": (),
+    "frame/sds.py": (),
+    "frame/mac.py": (),
+    "frame/decoder.py": (),
+    "frame/aggregator.py": (),
+    "frame/structure.py": (),
+    "frame/validator.py": (),
+    "frame/hitparse.py": (),
+    "frame/location.py": (),
+    "frame/mcc_mnc.py": (),
+    "frame/sdsstore.py": (),
+    "crypto/tea.py": (),
+    "ref/modulator.py": (),
+    "ref/polyphase.py": (),
+    "utils/logging.py": (),
+    # the scan kernel is built at first use on the port's device, and
+    # decryption is not deferred (the device key search is not ported)
+    "frame/batch.py": ("BatchedFrameDecoder.__init__",
+                       "BatchedFrameDecoder.kernel",
+                       "BatchedFrameDecoder._attach_and_decrypt"),
+    # the voice codec is not ported: these raise NotImplementedError
+    "ref/golden.py": ("golden_voice_iq",),
+    "runtime/sources.py": ("SyntheticTetraSource._voice_bits",),
+}
+
+# string literals the copies word otherwise (original -> copy)
+REWORDED = {"USB driver issue:": "USB access problem:"}
+
+# single definitions taken from larger modules
+PARTS = {
+    "PipelineStats": ("api.py", "api.py"),
+    "_jsonable": ("api.py", "api.py"),
+    "CLIListener": ("cli.py", "cli.py"),
+}
+
+
+def _strip_docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def _definitions(path: Path) -> dict:
+    """{qualified name: ast dump} of a module's top-level statements and
+    its classes' methods, package name normalised, docstrings dropped."""
+    src = path.read_text().replace("tetraear_tpu_torch", "tetraear_tpu")
+    for old, new in REWORDED.items():
+        src = src.replace(old, new)
+    tree = _strip_docstrings(ast.parse(src))
+    out, other = {}, []
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            rest = []
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{sub.name}"] = ast.dump(sub)
+                else:
+                    rest.append(ast.dump(sub))
+            out[node.name] = repr((ast.dump(ast.Module(node.bases, [])),
+                                   rest))
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = ast.dump(node)
+        else:
+            other.append(ast.dump(node))
+    out["<module statements>"] = repr(other)
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copy_equals_original(rel):
+    want = _definitions(JAX_PKG / rel)
+    got = _definitions(PORT / rel)
+    differ = {name for name in set(want) | set(got)
+              if want.get(name) != got.get(name)}
+    assert differ == set(COPIES[rel]), (
+        f"{rel}: differs in {sorted(differ)}, intended "
+        f"{sorted(COPIES[rel])}")
+
+
+@pytest.mark.parametrize("name", sorted(PARTS))
+def test_part_equals_original(name):
+    src_rel, dst_rel = PARTS[name]
+    want = _definitions(JAX_PKG / src_rel)
+    got = _definitions(PORT / dst_rel)
+    keys = [k for k in want if k == name or k.startswith(name + ".")]
+    assert keys
+    for k in keys:
+        assert got.get(k) == want[k], k
+
+
+@pytest.mark.parametrize("rel", ["Makefile", "hitparse.cpp"])
+def test_native_parser_sources_equal(rel):
+    want = (JAX_PKG / "frame/csrc" / rel).read_text()
+    got = (PORT / "frame/csrc" / rel).read_text()
+    assert got.replace("tetraear_tpu_torch", "tetraear_tpu") == want
+
+
+def test_port_imports_nothing_of_the_jax_package(tmp_path):
+    """Every module of the port imports, and neither jax nor any module
+    named tetraear_tpu or tetraear_tpu.* is loaded afterwards."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tetraear_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
+        " 'tetraear_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    if not n.endswith('__main__'):\n"
+        "        importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'jaxlib'"
+        " or m == 'tetraear_tpu' or m.startswith('tetraear_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert len(names) > 30, names\n"
+        "print('CLEAN', len(names))\n")
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+           "HOME": str(tmp_path)}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "CLEAN" in r.stdout
+
+
+def test_source_names_the_jax_package_only_in_prose():
+    """No import statement of the port or of chip_smoke.py names the JAX
+    package (docstrings and comments may point a reader to it)."""
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "tetraear_tpu"), (
+                    path, n)
+
+
+# -- the card by default ----------------------------------------------------
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default runs")
+
+
+def test_resolve_cpu_only_when_asked():
+    from tetraear_tpu_torch.device import resolve
+    assert resolve("cpu").type == "cpu"
+    _no_card()
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        resolve(None)
+    with pytest.raises(RuntimeError):
+        resolve("cuda")
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "fused", "runner",
+                                   "bank_state", "scan_kernel", "convert",
+                                   "cli"])
+def test_entry_points_raise_without_a_card(entry, tmp_path):
+    """No device given means the card: on a machine without one every
+    entry point raises; none carries on on the CPU."""
+    _no_card()
+    from tetraear_tpu_torch import convert
+    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    from tetraear_tpu_torch.cli import main
+    from tetraear_tpu_torch.dsp.backhalf import FusedRx
+    from tetraear_tpu_torch.dsp.framescan import FrameScanKernel
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
+    from tetraear_tpu_torch.runtime.stream import DecodeRunner
+
+    import numpy as np
+    calls = {
+        "pipeline": lambda: Pipeline(PipelineConfig()),
+        "fused": lambda: FusedRx(CarrierBankDemod(
+            fs=2.304e6, freqs_hz=[12_500.0], frontend="fft")),
+        "runner": lambda: DecodeRunner(
+            CarrierBankDemod(fs=2.4e6, freqs_hz=[0.0]),
+            BatchedFrameDecoder(1)),
+        "bank_state": lambda: CarrierBankDemod(
+            fs=2.4e6, freqs_hz=[0.0]).init_state(),
+        "scan_kernel": lambda: FrameScanKernel(even_only=True),
+        "convert": lambda: convert.state_from_jax(
+            {"prev_sym": np.zeros((1, 2), np.float32)}),
+        "cli": lambda: main(["decode", "--source",
+                             str(REPO / "tests/fixtures/"
+                                 "offair_2carrier.cs16")]),
+    }
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        calls[entry]()

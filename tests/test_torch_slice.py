@@ -47,12 +47,13 @@ def single_capture():
     payloads = [golden.sds_text_payload("FUSED BACKHALF RUN")] * 24
     iq = golden.golden_iq(payloads, fs=FS, freq_offset_hz=ONE[0],
                           snr_db=25, seed=57)
-    bl = CarrierBankDemod(fs=FS, freqs_hz=ONE).block_len
+    bl = CarrierBankDemod(fs=FS, freqs_hz=ONE, frontend="fft").block_len
     return np.concatenate([iq, np.zeros(-len(iq) % bl, np.complex64)])
 
 
 def eight_capture():
-    bl = CarrierBankDemod(fs=FS, freqs_hz=EIGHT).block_len
+    bl = CarrierBankDemod(fs=FS, freqs_hz=EIGHT,
+                          frontend="fft").block_len
     return fleet_capture(FS, EIGHT, range(8), 2 * bl, seed=21, text="OCTO")
 
 
@@ -81,9 +82,11 @@ def eight():
 
 
 def port_runner_frames(iq, offsets, s=2):
-    bank = CarrierBankDemod(fs=FS, freqs_hz=offsets)
+    bank = CarrierBankDemod(fs=FS, freqs_hz=offsets, frontend="fft")
     runner = DecodeRunner(bank, BatchedFrameDecoder(
-        len(offsets), auto_decrypt=False), blocks_per_dispatch=s)
+        len(offsets), auto_decrypt=False, device="cpu"),
+        blocks_per_dispatch=s, device="cpu")
+    assert runner.fused is not None
     out = runner.run(iq)
     assert runner.dispatches == -(-(len(iq) // bank.block_len) // s)
     return crc_frames(out["frames"])
@@ -93,7 +96,10 @@ def port_pipeline_frames(iq, offsets):
     got = []
     pipe = Pipeline(PipelineConfig(sample_rate=FS,
                                    carrier_offsets_hz=tuple(offsets),
-                                   validate=False), on_frame=got.append)
+                                   frontend="fft", carrier_afc=False,
+                                   auto_decrypt=False, validate=False,
+                                   device="cpu"), on_frame=got.append)
+    assert pipe.runner.fused is not None
     stats = pipe.run_offline(ArraySource(iq, FS), blocks_per_dispatch=2)
     assert stats.crc_pass == len(crc_frames(got))
     return crc_frames(got)
@@ -132,31 +138,46 @@ def test_decode_runner_batch_size_invariant(single, s):
     {"carrier_afc": True}, {"sample_rate": 2.4e6},
     {"frontend": "conv"}])
 def test_ineligible_config_raises(change):
-    cfg = dict(sample_rate=FS, carrier_offsets_hz=(12_500.0,))
+    """What is not ported (voice, frame workers) raises; what the fused
+    back half cannot serve takes the classic chain, for the reason the
+    JAX FusedRx gives."""
+    cfg = dict(sample_rate=FS, carrier_offsets_hz=(12_500.0,),
+               frontend="fft", carrier_afc=False, device="cpu")
     cfg.update(change)
-    with pytest.raises(ValueError) as info:
-        Pipeline(PipelineConfig(**cfg))
+    if "voice" in change or "frame_workers" in change:
+        with pytest.raises(ValueError):
+            Pipeline(PipelineConfig(**cfg))
+        return
+    pipe = Pipeline(PipelineConfig(**cfg))
+    if "sparse_hits" in change:
+        assert pipe.runner.fused is not None and not pipe.runner.sparse
+        return
+    assert pipe.runner.fused is None
     if "carrier_afc" in change or "sample_rate" in change:
         # the same message as the JAX FusedRx
         with pytest.raises(ValueError) as ref:
             jax_backhalf.FusedRx(JaxBank(
                 fs=cfg["sample_rate"], freqs_hz=[12_500.0], frontend="fft",
                 afc=cfg.get("carrier_afc", False)))
-        assert str(info.value) == str(ref.value)
+        assert pipe.runner._backhalf_reason == str(ref.value)
 
 
 def test_cli_decode_imports_no_jax(tmp_path):
-    """The port's CLI decodes a capture file on the CPU, and jax is not
-    in sys.modules afterwards."""
+    """The port's CLI decodes a capture file on the CPU, and neither jax
+    nor any module of the JAX package is in sys.modules afterwards."""
     path = tmp_path / "capture.npy"
     np.save(path, single_capture())
     code = (
         "import sys\n"
         "from tetraear_tpu_torch.cli import main\n"
         f"rc = main(['decode', '--source', {str(path)!r}, '-s', '2.304',"
-        " '--offsets', '12500', '--dispatch-blocks', '2'])\n"
+        " '--offsets', '12500', '--dispatch-blocks', '2', '--frontend',"
+        " 'fft', '--no-carrier-afc', '--device', 'cpu'])\n"
         "assert rc == 0\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'tetraear_tpu'"
+        " or m.startswith('tetraear_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('JAX_FREE')\n")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
            "HOME": str(tmp_path)}
@@ -167,3 +188,4 @@ def test_cli_decode_imports_no_jax(tmp_path):
     summary = json.loads(r.stdout[r.stdout.index("{\n"):
                                   r.stdout.rindex("\n}") + 2])
     assert summary["crc_pass"] >= 4 and summary["device"] == "cpu"
+    assert summary["backhalf"] == "fused"

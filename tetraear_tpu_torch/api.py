@@ -1,57 +1,97 @@
-"""Offline decode pipeline on the fused receive path (tetraear_tpu/api.py).
+"""Offline decode pipeline (tetraear_tpu/api.py).
 
 ``Pipeline(PipelineConfig(...)).run_offline(source)`` is the port's
-entry point: the same call the JAX CLI's ``decode`` makes, restricted
-to the configuration the fused path serves — the FFT frontend on a
-72 kHz * 2^m rate, no per-carrier AFC, no voice, in-process frame
-layer, sparse hit transfer.  Anything else raises ValueError; the
-classic chain, the streaming ``process_block`` path, checkpoints and
-voice are later parts of the port.
+entry point: the same call the JAX CLI's ``decode`` makes, for every
+receive-chain configuration the JAX ``Pipeline.run_offline`` accepts —
+``frontend="conv"`` or ``"fft"``, ``carrier_afc`` on or off, any rate
+``choose_decim`` accepts, ``sparse_hits`` on or off.  Banks the fused
+back half serves (fft frontend on a 72 kHz * 2^m rate, no AFC) take it;
+all others run the classic chain (dsp/backhalf.try_fused).  It runs on
+the card unless ``device="cpu"`` is given.
+
+Not ported yet, and raising when asked for: voice (``voice=True``), the
+sharded frame layer (``frame_workers``).  The streaming
+``process_block`` path, checkpoints and the detection gate are later
+parts of the port.
 """
 
 from __future__ import annotations
 
 import json
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 
-# the JAX package's stats record and frame serialiser (jax-free module
-# level; the subprocess test in tests/test_torch_slice.py guards that)
-from tetraear_tpu.api import PipelineStats, _jsonable
-from tetraear_tpu.crypto.tea import TetraKeyManager
-from tetraear_tpu.frame.aggregator import CallAggregator
-from tetraear_tpu.frame.decoder import TetraDecoder
-from tetraear_tpu.frame.structure import FrameStructureTracker
-from tetraear_tpu.frame.validator import TetraSignalValidator
+from tetraear_tpu_torch.crypto.tea import TetraKeyManager
+from tetraear_tpu_torch.device import resolve
 from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+from tetraear_tpu_torch.frame.aggregator import CallAggregator
 from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
+from tetraear_tpu_torch.frame.decoder import TetraDecoder
+from tetraear_tpu_torch.frame.structure import FrameStructureTracker
+from tetraear_tpu_torch.frame.validator import TetraSignalValidator
 from tetraear_tpu_torch.runtime.stream import DecodeRunner
 
 
 @dataclass
 class PipelineConfig:
-    sample_rate: float = 2.304e6
+    sample_rate: float = 2.4e6
     frequency: float = 392.5e6          # display/centre frequency
-    carrier_offsets_hz: tuple = (12_500.0,)
-    auto_decrypt: bool = False
+    carrier_offsets_hz: tuple = (0.0,)  # channels to demodulate
+    block_len: int = 131_072            # a request the conv frontend
+                                        # rounds to its granularity; the
+                                        # fft frontend fixes its own
+    auto_decrypt: bool = True
     keys: tuple = ()
     key_file: str | None = None
     expected_mcc: int | None = None
     validate: bool = True
     records_dir: str | None = None      # JSONL frame log
-    frontend: str = "fft"               # the only frontend ported
-    carrier_afc: bool = False           # the fused path has no AFC loop
+    carrier_afc: bool = True            # per-carrier d^4 tracking loop
+    frontend: str = "conv"              # "fft": wideband FFT channelizer
+                                        # (the fleet-scale frontend; on a
+                                        # 72 kHz-family rate with
+                                        # carrier_afc off it enables the
+                                        # fused back half)
     voice: bool = False                 # voice chain: not ported yet
     frame_workers: int = 0              # sharded frame layer: not ported
-    sparse_hits: bool = True            # dense-plane fetch: not ported
-    device: str = "cpu"                 # "cuda" runs the CUDA kernels
+    sparse_hits: bool = True            # fetch packed top-K hit keys
+                                        # instead of the dense verdict
+                                        # planes; False = the dense-plane
+                                        # oracle path
+    device: str | None = None           # None: the card; "cpu" runs the
+                                        # kernels' plain versions
+
+
+@dataclass
+class PipelineStats:
+    blocks: int = 0
+    samples: int = 0
+    frames: int = 0
+    valid_frames: int = 0
+    crc_pass: int = 0
+    encrypted: int = 0
+    decrypted: int = 0
+    voice_frames: int = 0
+    stolen_frames: int = 0
+    sds_messages: int = 0
+    signal_present: bool = False
+    afc_offset_hz: float = 0.0
+    started_at: float = field(default_factory=time.time)
+
+    def as_dict(self) -> dict:
+        d = self.__dict__.copy()
+        dur = max(time.time() - d.pop("started_at"), 1e-9)
+        d["uptime_s"] = dur
+        d["samples_per_s"] = self.samples / dur
+        d["frames_per_s"] = self.frames / dur
+        return d
 
 
 class Pipeline:
-    """Offline demod/decode engine over any IQSource (fused path)."""
+    """Offline demod/decode engine over any IQSource."""
 
     def __init__(self, config: PipelineConfig, on_frame=None):
         if config.voice:
@@ -59,15 +99,25 @@ class Pipeline:
         if config.frame_workers:
             raise ValueError("the sharded frame layer is not ported yet "
                              "(frame_workers=0)")
-        if not config.sparse_hits:
-            raise ValueError("only the sparse hit transfer is ported "
-                             "(sparse_hits=True)")
         self.config = config
         self.on_frame = on_frame
+        self.device = resolve(config.device)
+
+        # Round block length down to the demod granularity.
+        probe = CarrierBankDemod(fs=config.sample_rate, freqs_hz=[0.0],
+                                 frontend=config.frontend)
+        if config.frontend == "fft":
+            # the FFT channelizer's overlap-save geometry fixes the
+            # block length (nfft - overlap); config.block_len is a
+            # request the conv frontend rounds, not a contract
+            self.block_len = probe.block_len
+        else:
+            gran = probe.granularity
+            self.block_len = max(gran, (config.block_len // gran) * gran)
         self.bank = CarrierBankDemod(
             fs=config.sample_rate, freqs_hz=config.carrier_offsets_hz,
-            frontend=config.frontend, afc=config.carrier_afc)
-        self.block_len = self.bank.block_len
+            block_len=self.block_len, afc=config.carrier_afc,
+            frontend=config.frontend)
         self.n_carriers = self.bank.n_carriers
 
         key_manager = None
@@ -81,11 +131,13 @@ class Pipeline:
             if config.keys:
                 d.set_keys(list(config.keys))
         self.batch = BatchedFrameDecoder(self.n_carriers,
-                                         decoders=self.decoders)
-        # the runner owns the FusedRx (raises ValueError if ineligible)
+                                         decoders=self.decoders,
+                                         device=self.device)
+        # the runner picks the back half (backhalf.try_fused)
         self.runner = DecodeRunner(self.bank, self.batch,
-                                   device=config.device)
-        self.state = self.runner.fused.init_state()
+                                   device=self.device,
+                                   sparse=config.sparse_hits)
+        self.state = self.runner.init_state()
         self.dispatches = 0
         self.validator = (TetraSignalValidator(config.expected_mcc)
                           if config.validate else None)
@@ -139,7 +191,9 @@ class Pipeline:
     def run_offline(self, source, blocks_per_dispatch: int = 16,
                     max_blocks: int | None = None) -> PipelineStats:
         """Offline decode, S = blocks_per_dispatch blocks per batch.  A
-        final partial block is zero-padded."""
+        final partial block is zero-padded.  Detection gating and
+        spectrum callbacks do not apply: offline decode wants every
+        frame."""
         runner = self.runner
         runner.s = int(blocks_per_dispatch)
 
@@ -180,3 +234,21 @@ class Pipeline:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+
+
+def _jsonable(frame: dict) -> dict:
+    out = {}
+    for k, v in frame.items():
+        if k in ("bits", "soft_symbols"):
+            continue
+        if isinstance(v, (bytes, bytearray)):
+            out[k] = v.hex()
+        elif isinstance(v, np.ndarray):
+            out[k] = v.tolist()
+        elif isinstance(v, np.generic):
+            out[k] = v.item()
+        elif isinstance(v, dict):
+            out[k] = _jsonable(v)
+        else:
+            out[k] = v
+    return out

@@ -1,11 +1,11 @@
 """Command-line interface of the port: the offline ``decode`` command.
 
-    python -m tetraear_tpu_torch decode --source capture.cf32 -s 2.304 \\
-        --offsets 12500,-12500 --device cuda
+    python -m tetraear_tpu_torch decode --source capture.cs16 -s 2.4 \\
+        --offsets 12500,-287500
 
-decodes a capture file on the fused receive path (the JAX package's
-``decode``, restricted to the configuration that path serves) and
-prints each frame and a JSON summary.
+decodes a capture file (the JAX package's ``decode`` with its options
+for the receive chain) and prints each frame and a JSON summary.  It
+runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -14,13 +14,71 @@ import argparse
 import json
 import sys
 
-from tetraear_tpu.cli import CLIListener
+C_RESET = "\x1b[0m"
+C_GREEN = "\x1b[32m"
+C_YELLOW = "\x1b[33m"
+C_RED = "\x1b[31m"
+C_CYAN = "\x1b[36m"
+C_MAGENTA = "\x1b[35m"
+C_DIM = "\x1b[2m"
+
+
+class CLIListener:
+    """Colorized frame printer (modern.py:5334-5405)."""
+
+    def __init__(self, show_invalid: bool = False):
+        self.show_invalid = show_invalid
+        self.count = 0
+
+    def on_frame(self, frame: dict) -> None:
+        self.count += 1
+        if not self.show_invalid and frame.get("valid") is False:
+            return
+        crc = frame.get("burst_crc")
+        crc_s = (f"{C_GREEN}CRC✓{C_RESET}" if crc
+                 else f"{C_RED}CRC✗{C_RESET}")
+        enc = frame.get("encrypted")
+        if enc and frame.get("decrypted"):
+            enc_s = f"{C_MAGENTA}DEC[{frame.get('encryption_algorithm')}]" \
+                f"{C_RESET}"
+        elif enc:
+            enc_s = f"{C_YELLOW}ENC[{frame.get('encryption_algorithm')}]" \
+                f"{C_RESET}"
+        else:
+            enc_s = f"{C_GREEN}CLR{C_RESET}"
+        line = (f"#{self.count:<5} {frame.get('type_name', '?'):<14} "
+                f"car{frame.get('carrier', 0)} {crc_s} {enc_s}")
+        meta = frame.get("call_metadata")
+        if meta:
+            if meta.get("talkgroup_id"):
+                line += f" TG={meta['talkgroup_id']}"
+            if meta.get("source_ssi"):
+                line += f" SSI={meta['source_ssi']}"
+            if meta.get("mcc"):
+                from tetraear_tpu_torch.frame import mcc_mnc
+                line += (f" {C_CYAN}"
+                         f"{mcc_mnc.get_location_info(meta['mcc'], meta.get('mnc'))}"
+                         f"{C_RESET}")
+        sds = frame.get("sds_message")
+        if sds:
+            line += f"\n      {C_CYAN}💬 {sds}{C_RESET}"
+        if frame.get("has_voice"):
+            line += f" {C_GREEN}🔊{C_RESET}"
+        print(line)
+
+    def on_status(self, status: str) -> None:
+        print(f"{C_DIM}[status] {status}{C_RESET}", file=sys.stderr)
 
 
 def cmd_decode_file(args) -> int:
-    from tetraear_tpu.runtime.sources import open_source
+    """Offline decode of a recorded capture -> frames on stdout/JSONL,
+    S blocks per device batch (Pipeline.run_offline)."""
     from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    from tetraear_tpu_torch.runtime.sources import open_source
 
+    if getattr(args, "verbose", False):
+        from tetraear_tpu_torch.utils.logging import setup_logging
+        setup_logging(True)
     listener = CLIListener(show_invalid=args.show_invalid)
     offsets = tuple(float(o) for o in str(args.offsets).split(","))
     cfg = PipelineConfig(
@@ -31,15 +89,20 @@ def cmd_decode_file(args) -> int:
         key_file=args.keys,
         records_dir=args.records_dir,
         expected_mcc=args.expected_mcc,
+        frontend=args.frontend,
+        carrier_afc=args.carrier_afc,
+        sparse_hits=args.sparse_hits,
+        frame_workers=args.frame_workers,
         device=args.device,
     )
     pipe = Pipeline(cfg, on_frame=listener.on_frame)
     src = open_source(args.source, sample_rate=args.sample_rate * 1e6,
-                      frequency=args.frequency * 1e6)
+                      frequency=args.frequency * 1e6, gain=args.gain)
     stats = pipe.run_offline(src, blocks_per_dispatch=args.dispatch_blocks,
                              max_blocks=args.max_blocks)
     summary = stats.as_dict()
-    summary["device"] = args.device
+    summary["device"] = str(pipe.device)
+    summary["backhalf"] = pipe.runner._backhalf_reason
     summary["device_dispatches"] = pipe.dispatches
     summary["activity"] = pipe.aggregator.snapshot()
     summary["tdma"] = [t.stats() for t in pipe.trackers if t.slot_counter]
@@ -50,30 +113,50 @@ def cmd_decode_file(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tetraear_tpu_torch",
-        description="TETRA fleet receive path on PyTorch + CUDA")
+        description="TETRA receive chain on PyTorch + CUDA")
     sub = parser.add_subparsers(dest="command")
     p = sub.add_parser("decode", help="offline decode of a capture file")
-    p.add_argument("--source", required=True, help="capture file path")
-    p.add_argument("-s", "--sample-rate", type=float, default=2.304,
-                   help="sample rate in Msps, 72 kHz * 2^m "
-                        "(default 2.304)")
     p.add_argument("-f", "--frequency", type=float, default=392.5,
                    help="centre frequency in MHz (default 392.5)")
-    p.add_argument("--offsets", default="12500",
-                   help="comma-separated carrier offsets in Hz")
-    p.add_argument("--device", default="cpu",
-                   help="torch device: cpu (plain versions) or cuda "
-                        "(CUDA kernels)")
-    p.add_argument("--auto-decrypt", action="store_true", default=False)
+    p.add_argument("-s", "--sample-rate", type=float, default=2.4,
+                   help="sample rate in Msps (default 2.4)")
+    p.add_argument("-g", "--gain", default="auto",
+                   help="SDR gain ('auto' or dB)")
+    p.add_argument("--source", required=True,
+                   help="IQ source: 'synthetic[:off1,...]' or a capture "
+                        "file path")
+    p.add_argument("--offsets", default="0",
+                   help="comma-separated carrier offsets in Hz to "
+                        "demodulate (default: 0 = centre channel)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' "
+                        "runs the kernels' plain versions)")
+    p.add_argument("--frontend", choices=("conv", "fft"), default="conv",
+                   help="conv: NCO + polyphase stages; fft: wideband FFT "
+                        "channelizer (default conv)")
+    p.add_argument("--no-carrier-afc", dest="carrier_afc",
+                   action="store_false", default=True,
+                   help="switch the per-carrier frequency tracking off")
+    p.add_argument("--dense-hits", dest="sparse_hits",
+                   action="store_false", default=True,
+                   help="fetch the dense scan planes instead of sparse "
+                        "hit keys")
+    p.add_argument("--auto-decrypt", action="store_true", default=True)
+    p.add_argument("--no-auto-decrypt", dest="auto_decrypt",
+                   action="store_false")
     p.add_argument("-k", "--keys", help="key file (ALG:ID:HEX per line)")
     p.add_argument("--records-dir", help="directory for the JSONL log")
     p.add_argument("--expected-mcc", type=int,
-                   help="expected country MCC for validation")
+                   help="expected country MCC for validation (e.g. 260)")
+    p.add_argument("--frame-workers", type=int, default=0,
+                   help="worker processes of the frame layer (not ported "
+                        "yet: 0 only)")
     p.add_argument("--dispatch-blocks", type=int, default=16,
                    help="blocks per device batch (default 16)")
     p.add_argument("--max-blocks", type=int,
                    help="stop after N blocks (default: run to EOF)")
     p.add_argument("--show-invalid", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(func=cmd_decode_file)
     args = parser.parse_args(argv)
     if not getattr(args, "func", None):

@@ -12,6 +12,10 @@ kernel launches and a little glue:
   * cuda_kernels.fused_backhalf: phase ramp and rotation, tail splice,
     interpolation, pi/4-DQPSK and the even-position sync + CRC scan.
 
+Banks the fused step cannot serve run the classic chain, one block of
+which is ``block_step_scan`` at the end of this module; ``try_fused``
+decides between the two.
+
 The carried state keeps the JAX layout ({"bank": {"channelizer",
 "timing", "prev_sym"}, "bit_tail"}, complex values as [re, im] pairs),
 so dsp/convert.py moves it between the two packages unchanged.
@@ -30,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tetraear_tpu_torch.device import resolve
 from tetraear_tpu_torch.dsp import cuda_kernels as ck
 from tetraear_tpu_torch.dsp import framescan
 
@@ -37,22 +42,48 @@ TWO_PI = 2.0 * np.pi
 TAILBITS = ck.TAILBITS
 
 
+def try_fused(bank, device=None, fused: bool = True) -> tuple:
+    """THE fused-vs-classic decision point.
+
+    Every consumer (api.Pipeline, runtime.stream.DecodeRunner,
+    chip_smoke.py) selects its back half HERE; eligibility itself lives
+    in FusedRx.__init__.  Eligible banks take ``FusedRx``; all others —
+    the conv frontend, rates outside 72 kHz * 2^m, per-carrier AFC —
+    take the classic chain (pipeline.CarrierBankDemod._step_impl +
+    framescan, ``block_step_scan`` below).  The two are not
+    unreconciled twins: the tests pin both to identical symbol
+    decisions and verdict planes.  ``fused=False`` forces the classic
+    chain (the JAX package's TETRAEAR_NO_FUSED switch); the JAX
+    condition on the backend has no counterpart.
+
+    Returns (FusedRx | None, reason string).
+    """
+    if not fused:
+        return None, "fused=False"
+    try:
+        return FusedRx(bank, device), "fused"
+    except ValueError as e:
+        return None, str(e)
+
+
 class FusedRx:
     """Fused block step for a dsp.pipeline.CarrierBankDemod bank.
 
-    ``FusedRx(bank, device)`` holds the bank's tables on ``device``;
-    the wrappers in cuda_kernels launch the CUDA kernels for a CUDA
-    device and run their plain versions on the CPU."""
+    ``FusedRx(bank, device)`` holds the bank's tables on ``device``
+    (None: the card); the wrappers in cuda_kernels launch the CUDA
+    kernels for a CUDA device and run their plain versions on the
+    CPU."""
 
-    def __init__(self, bank, device="cpu"):
+    def __init__(self, bank, device=None):
         ch = getattr(bank, "channelizer", None)
         if ch is None or bank.plan.stages:
             raise ValueError(
                 "fused back half needs the fft frontend on a 72 kHz-"
                 "family rate (no resample stages)")
         if not ch.synth_ok:
-            raise ValueError("fused back half needs the Pallas band "
-                             "synthesis (TETRAEAR_NO_PALLAS_SYNTH unset)")
+            raise ValueError("fused back half needs the band synthesis "
+                             "kernel (kernel_synth=True, row-gatherable "
+                             "bands)")
         if getattr(bank, "afc", False):
             raise ValueError("fused back half does not implement the "
                              "closed-loop AFC path")
@@ -62,7 +93,7 @@ class FusedRx:
         if not ch.fft2p_ok:
             raise ValueError("fused back half needs the two-pass FFT "
                              "geometry (128 | n1, n2, n_band)")
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.bank = bank
         self.ch = ch
         self.k_max = bank.k_max
@@ -240,6 +271,7 @@ class FusedRx:
                                state["bank"]["prev_sym"])
         new_state = {
             "bank": {
+                **state["bank"],
                 "channelizer": new_cstate,
                 "timing": {
                     "tail": last[:, :, 0, self.p - 4:].transpose(1, 2)
@@ -261,3 +293,55 @@ class FusedRx:
         c_n = soft_planes.shape[0]
         flat = soft_planes.transpose(2, 3).reshape(c_n, 2, 128 * self.sy)
         return flat[:, :, :self.k_max].transpose(1, 2)
+
+
+def interleave_bits(hard: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(C, K) uint8 symbols + validity -> (C, 2K) uint8 bits, msb first,
+    invalid slots zero."""
+    h = torch.where(valid, hard, torch.zeros_like(hard)).to(torch.uint8)
+    return torch.stack([h >> 1, h & 1], dim=2).reshape(h.shape[0], -1)
+
+
+def slide_tail(z: torch.Tensor, n_c: torch.Tensor, k: int,
+               t2: int = TAILBITS) -> torch.Tensor:
+    """Next carried bit tail: the last ``t2`` VALID bits of the assembled
+    row z = [tail ++ block bits].  The per-row start is 2 n_c, which
+    timing_recover bounds to {2K-4, 2K-2, 2K}: three static slices and
+    a select chain, as in the reference."""
+    k2 = 2 * k
+    tail2 = z[:, k2 - 4:k2 - 4 + t2]
+    for d in (1, 2):
+        cand = z[:, k2 - 4 + 2 * d:k2 - 4 + 2 * d + t2]
+        tail2 = torch.where((n_c == k - 2 + d)[:, None], cand, tail2)
+    return tail2
+
+
+def classic_step_scan(bank, x_r, state, bit_tail_bits,
+                      kernel_scan: bool = True):
+    """Reference formulation of the fused block step:
+    bank._step_impl + interleave + carried-tail concat +
+    frame_scan_packed_even + the tail slide.  Used by the exactness
+    tests.
+
+    bit_tail_bits: (C, 1200) uint8.  Returns (scan dict, new bank
+    state, new tail bits, n_valid).
+    """
+    scan, st2, tl2, n_c, _out = block_step_scan(bank, x_r, state,
+                                                bit_tail_bits, kernel_scan)
+    return scan, st2, tl2, n_c
+
+
+def block_step_scan(bank, x_r, state, bit_tail_bits,
+                    kernel_scan: bool = True):
+    """classic_step_scan that ALSO returns the demod block outputs: one
+    block of the classic chain, demod + device sync/CRC scan with the
+    carried bit tail."""
+    k = bank.k_max
+    out, st2 = bank._step_impl(x_r, state)
+    valid = out["valid"]
+    n_c = valid.sum(dim=1)
+    z = torch.cat([bit_tail_bits, interleave_bits(out["hard"], valid)],
+                  dim=1)
+    scan = framescan.frame_scan_packed_even(z, kernel_scan)
+    tl2 = slide_tail(z, n_c, k)
+    return scan, st2, tl2, n_c, out

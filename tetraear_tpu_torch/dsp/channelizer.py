@@ -6,14 +6,26 @@ carrier's band of n_band bins is gathered, multiplied by the channel
 filter and inverse-transformed at the channel rate fs/decim.  This
 module builds the geometry and the host tables of that scheme in
 numpy, exactly as the JAX class does (the tests require bit-equal
-tables); the device work lives in dsp/cuda_kernels.py and
-dsp/backhalf.py.
+tables).
 
-Only what the fused receive path reads is built: the quantized
-row-gather extraction (rolled H1 per bin shift d), the band synthesis
-tables and the per-block phase-cycle step.  The XLA-only formulations
-of the JAX class (four-step FFT tables, einsum synthesis, the Pallas
-DMA extraction) have no counterpart here.
+Two block steps read them.  The fused receive path (dsp/backhalf.py
+``FusedRx``) runs the spliced two-pass FFT kernel and the band synthesis
+with the timing phasor.  The classic step (``FFTChannelizer.step``)
+serves every other fft-frontend configuration: a ``torch.fft.fft`` of
+the overlap-save window (the JAX step's wideband transform is XLA's,
+not a Pallas kernel), then one of
+
+  * ``cuda_kernels.band_synth_y``: extraction, filter and inverse
+    transform fused, whenever the bands are row-gatherable (aligned or
+    quantized starts) and ``kernel_synth`` is on (the default);
+  * ``cuda_kernels.band_extract_rows`` (aligned starts, with
+    ``kernel_extract``) or the row gather, then filter and ``_synth``;
+  * ``cuda_kernels.band_extract`` when n_band is no multiple of 128 and
+    every band is an arbitrary slice of the spectrum.
+
+``kernel_synth`` and ``kernel_extract`` are the JAX package's
+TETRAEAR_NO_PALLAS_SYNTH / TETRAEAR_PALLAS_EXTRACT switches as keyword
+arguments.
 """
 
 from __future__ import annotations
@@ -24,7 +36,8 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from tetraear_tpu.dsp import design
+from tetraear_tpu_torch.device import resolve
+from tetraear_tpu_torch.dsp import design
 
 
 def choose_decim(fs: float) -> int:
@@ -61,8 +74,10 @@ class FFTChannelizer:
 
     def __init__(self, fs: float, freqs_hz, block_len: int | None = None,
                  back_granularity: int | None = None, fold_fir=None,
-                 nfft: int | None = None):
+                 nfft: int | None = None, kernel_synth: bool = True,
+                 kernel_extract: bool = False):
         self.fs = float(fs)
+        self._dev_cache: dict = {}
         self.freqs_hz = np.asarray(freqs_hz, np.float64)
         self.decim = choose_decim(self.fs)
         self.nfft = choose_nfft(self.fs) if nfft is None else int(nfft)
@@ -146,7 +161,10 @@ class FFTChannelizer:
         # channel filter rolled by d (128 rolls) and a per-d ramp
         self.quantized = bool(not self.aligned and self.n_band % 128 == 0)
         if self.aligned or self.quantized:
+            rows = self.n_band // 128
             start_al = (self.band_start // 128) * 128
+            self.row_idx = (start_al[:, None] // 128
+                            + np.arange(rows)[None, :]).astype(np.int32)
         if self.quantized:
             self.d_shift = (self.band_start - start_al).astype(np.int32)
             nb = self.n_band
@@ -177,12 +195,34 @@ class FFTChannelizer:
             self.ramp = (self.ramp
                          * self.sign[None, :]).astype(np.complex64)
 
+        # matmul synthesis tables of the unfused step (_synth): the
+        # layout-native Cooley-Tukey split i = l + 128 r, k = s + P t
+        self.mxu_synth = self.n_band % 128 == 0 and self.n_band >= 256
+        if self.mxu_synth:
+            pp = self.n_band // 128
+            self.synth_p = pp
+            rv = np.arange(pp)
+            self._m1 = np.exp(2j * np.pi * np.outer(rv, rv)
+                              / pp).astype(np.complex64)       # [r, s]
+            lv = np.arange(128)
+            self._tw = (np.exp(2j * np.pi * np.outer(lv, rv)
+                               / self.n_band)
+                        / self.n_band).astype(np.complex64)    # [l, s]
+            self._m2 = np.exp(2j * np.pi * np.outer(lv, lv)
+                              / 128).astype(np.complex64)      # [t, l]
+        # row-copy extraction kernel (cuda_kernels.band_extract_rows):
+        # opt-in, aligned starts only
+        self.use_extract_rows = bool(self.aligned and kernel_extract
+                                     and self.n_band % 1024 == 0)
+        if self.use_extract_rows:
+            self.row_start = (self.band_start // 128).astype(np.int32)
+
         # band synthesis tables (dsp/cuda_kernels.band_synth): rolled H1
         # planes, and the layout-native Cooley-Tukey split n_band = P*128
         # (i = l + 128 r, k = s + P t) that the plain version evaluates
-        self.synth_ok = ((self.aligned or self.quantized)
-                                 and self.n_band % 128 == 0
-                                 and self.n_band >= 256)
+        self.synth_ok = bool((self.aligned or self.quantized)
+                             and self.n_band % 128 == 0
+                             and self.n_band >= 256 and kernel_synth)
         if self.synth_ok:
             pp = self.n_band // 128
             self.synth_rows = pp
@@ -220,12 +260,126 @@ class FFTChannelizer:
                            * (self.block_len % self.nfft)
                            % self.nfft).astype(np.float32)
 
-    def init_state(self, device="cpu") -> dict:
+    def init_state(self, device=None) -> dict:
         """Carried state: the overlap-save tail as (overlap, 2) [re, im]
         pairs and the per-carrier float32 cycle counters."""
+        device = resolve(device)
         return {
             "tail": torch.zeros((self.overlap, 2), dtype=torch.float32,
                                 device=device),
             "cycles": torch.zeros((len(self.k_c),), dtype=torch.float32,
                                   device=device),
         }
+
+    # -- the classic block step ----------------------------------------
+
+    def _dev(self, name: str, device) -> torch.Tensor:
+        """Host table ``name`` as a tensor on ``device`` (cached)."""
+        key = (name, str(device))
+        if key not in self._dev_cache:
+            self._dev_cache[key] = torch.from_numpy(
+                np.ascontiguousarray(getattr(self, name))).to(device)
+        return self._dev_cache[key]
+
+    def _wideband_fft(self, xx: torch.Tensor) -> torch.Tensor:
+        """FFT of the (nfft,) overlap-save window.  The JAX step runs
+        XLA's FFT here (four-step above 2^20), not a Pallas kernel, so
+        the library transform is its counterpart."""
+        return torch.fft.fft(xx)
+
+    def _synth(self, band: torch.Tensor) -> torch.Tensor:
+        """(C, n_band) spectra -> (C, n_band) time samples; equals
+        ifft(band, dim=1) to float32 rounding.
+
+        Cooley-Tukey n_band = P * 128 with the split i = l + 128 r,
+        k = s + P t, as the reference's two complex matmuls:
+          T[l, s] = sum_r B[l + 128 r] e^{2 pi j r s / P}
+          y[s + P t] = sum_l (T[l, s] tw[l, s]) e^{2 pi j l t / 128}"""
+        if not self.mxu_synth:
+            return torch.fft.ifft(band, dim=1)
+        c = band.shape[0]
+        dev = band.device
+        br = band.reshape(c, self.synth_p, 128)       # [r, l] = B[l+128r]
+        t = torch.einsum("crl,rs->cls", br, self._dev("_m1", dev))
+        u = t * self._dev("_tw", dev)[None, :, :]
+        y = torch.einsum("tl,cls->cts", self._dev("_m2", dev), u)
+        return y.reshape(c, self.n_band)
+
+    def step(self, x: torch.Tensor, state: dict) -> tuple:
+        """x: (block_len,) complex64 new wideband samples.
+
+        Returns ((C, n_out) complex64 channel blocks @ out_rate,
+        new_state)."""
+        from tetraear_tpu_torch.dsp import cuda_kernels as ck
+        from tetraear_tpu_torch.dsp import kernels
+
+        dev = x.device
+        c = len(self.k_c)
+        tail = kernels.r2c(state["tail"])
+        xx = torch.cat([tail, x])                     # (nfft,)
+        big = self._wideband_fft(xx)
+        # wrap-extend so every band is one contiguous slice
+        x_ext = torch.cat([big, big[:self.n_band]])
+        if self.synth_ok:
+            planes = torch.stack([x_ext.real, x_ext.imag]).reshape(
+                2, -1, 128)
+            got = ck.band_synth_y(
+                planes, self._dev("h1_planes", dev),
+                self._dev("row_start", dev), self._dev("d_shift", dev),
+                self._dev("m1c", dev), self._dev("m2re", dev),
+                self._dev("m2im", dev), self._dev("twre", dev),
+                self._dev("twim", dev), self.synth_rows)
+            y = torch.complex(got[:, 0], got[:, 1]).reshape(c, self.n_band)
+            return self._finish(y, state, xx)
+        if self.use_extract_rows:
+            planes = torch.stack([x_ext.real, x_ext.imag]).reshape(
+                2, -1, 128)
+            got = ck.band_extract_rows(
+                planes, self._dev("row_start", dev), self.n_band // 128)
+            nat = torch.complex(got[:, 0], got[:, 1]).reshape(
+                c, self.n_band)
+        elif self.aligned or self.quantized:
+            rows = x_ext.reshape(-1, 128)             # (.., 128) lanes
+            nat = rows[self._dev("row_idx", dev).long()]
+            nat = nat.reshape(c, self.n_band)
+        else:
+            got = ck.band_extract(
+                torch.view_as_real(x_ext).contiguous(),
+                self._dev("band_start", dev), self.n_band)
+            nat = torch.view_as_complex(got)          # (C, n_band) centred
+        # natural-order band product (the fftshift lives in the rolled
+        # filter tables + the (-1)^k sign on the synthesis output)
+        if self.quantized:
+            band = nat * self._dev("h1_roll", dev)[
+                self._dev("d_shift", dev).long()]
+        else:
+            band = nat * self._dev("h1_band", dev)[None, :]
+        return self._finish(self._synth(band), state, xx)
+
+    def _finish(self, y: torch.Tensor, state: dict, xx: torch.Tensor):
+        """Shared step tail: scale, slice, ramp/sign, phase, new state."""
+        from tetraear_tpu_torch.dsp import kernels
+
+        dev = y.device
+        y = y * float(np.float32(1.0 / self.decim))
+        y = y[:, self.drop:self.drop + self.n_out]
+        if self.quantized:
+            # remove the +d-bin modulation left by the aligned
+            # extraction (ramp table carries the (-1)^k sign)
+            y = y * self._dev("ramp", dev)[self._dev("d_shift", dev).long()]
+        else:
+            y = y * self._dev("sign", dev)[None, :]
+
+        # restore global phase continuity; float32 cycle counters, exact
+        # below 2^24 only (cycle_step above)
+        nfft_f = float(self.nfft)
+        ang = state["cycles"] * float(np.float32(2.0 * np.pi)) / nfft_f
+        rot = torch.complex(torch.cos(ang), -torch.sin(ang))
+        y = y * rot[:, None]
+        new_cycles = torch.remainder(
+            state["cycles"] + self._dev("cycle_step", dev), nfft_f)
+        new_state = {
+            "tail": kernels.c2r(xx[xx.shape[0] - self.overlap:]),
+            "cycles": new_cycles,
+        }
+        return y, new_state

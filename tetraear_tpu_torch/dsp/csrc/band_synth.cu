@@ -1,7 +1,11 @@
 // Per-carrier band synthesis with the Oerder-Meyr timing phasor.
 //
-// Replaces band_synth(..., phasor_drop=drop)
-// (tetraear_tpu/dsp/pallas_kernels.py).  One block per carrier c:
+// Replaces band_synth (tetraear_tpu/dsp/pallas_kernels.py) in its three
+// forms, as compile-time variants of one kernel: with the phasor
+// (phasor_drop=drop, _band_synth_ph_kernel), y only (_band_synth_kernel:
+// no phasor is computed or written) and phasor only (y_out=False,
+// _band_synth_phonly_kernel: y never reaches device memory).
+// One block per carrier c:
 //   * gather the carrier's n_band = 128 P natural-order spectrum bins,
 //     which are contiguous: planes[:, row_start[c]*128 + i];
 //   * multiply by its rolled channel filter h1_planes[:, d_shift[c]];
@@ -27,6 +31,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool WRITE_Y, bool WITH_PH>
 __global__ void __launch_bounds__(1024)
 band_synth_kernel(const float* __restrict__ planes, long long plane_len,
                   const float* __restrict__ h1, int n_rolls,
@@ -57,9 +62,11 @@ band_synth_kernel(const float* __restrict__ planes, long long plane_len,
     const float2 v = sm[k];
     const float yr = v.x * scale;
     const float yi = v.y * scale;
-    yc[k] = yr;
-    yc[n + k] = yi;
-    if (k >= drop) {
+    if (WRITE_Y) {
+      yc[k] = yr;
+      yc[n + k] = yi;
+    }
+    if (WITH_PH && k >= drop) {
       const float pw = yr * yr + yi * yi;
       switch (k & 3) {
         case 0: pre += pw; break;
@@ -69,6 +76,7 @@ band_synth_kernel(const float* __restrict__ planes, long long plane_len,
       }
     }
   }
+  if (!WITH_PH) return;
   pre = warp_sum(pre);
   pim = warp_sum(pim);
   const int lane = threadIdx.x & 31;
@@ -93,18 +101,40 @@ band_synth_kernel(const float* __restrict__ planes, long long plane_len,
 
 }  // namespace
 
+template <bool WRITE_Y, bool WITH_PH>
+static int launch(const void* planes, long long plane_len, const void* h1,
+                  int n_rolls, const void* row_start, const void* d_shift,
+                  void* y, void* ph, const void* tw, int log2n, int drop,
+                  int n_carriers, void* stream) {
+  const int smem = (1 << log2n) * (int)sizeof(float2);
+  cudaError_t e = cudaFuncSetAttribute(
+      band_synth_kernel<WRITE_Y, WITH_PH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  band_synth_kernel<WRITE_Y, WITH_PH>
+      <<<n_carriers, 1024, smem, (cudaStream_t)stream>>>(
+          (const float*)planes, plane_len, (const float*)h1, n_rolls,
+          (const int*)row_start, (const int*)d_shift, (float*)y,
+          (float*)ph, log2n, drop, (const float2*)tw);
+  return (int)cudaGetLastError();
+}
+
+// mode 0: y and phasor; 1: y only (ph unused); 2: phasor only (y unused)
 extern "C" int tt_band_synth(const void* planes, long long plane_len,
                              const void* h1, int n_rolls,
                              const void* row_start, const void* d_shift,
                              void* y, void* ph, const void* tw, int log2n,
-                             int drop, int n_carriers, void* stream) {
-  const int smem = (1 << log2n) * (int)sizeof(float2);
-  cudaError_t e = cudaFuncSetAttribute(
-      band_synth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  band_synth_kernel<<<n_carriers, 1024, smem, (cudaStream_t)stream>>>(
-      (const float*)planes, plane_len, (const float*)h1, n_rolls,
-      (const int*)row_start, (const int*)d_shift, (float*)y, (float*)ph,
-      log2n, drop, (const float2*)tw);
-  return (int)cudaGetLastError();
+                             int drop, int n_carriers, int mode,
+                             void* stream) {
+  if (mode == 1)
+    return launch<true, false>(planes, plane_len, h1, n_rolls, row_start,
+                               d_shift, y, ph, tw, log2n, drop, n_carriers,
+                               stream);
+  if (mode == 2)
+    return launch<false, true>(planes, plane_len, h1, n_rolls, row_start,
+                               d_shift, y, ph, tw, log2n, drop, n_carriers,
+                               stream);
+  return launch<true, true>(planes, plane_len, h1, n_rolls, row_start,
+                            d_shift, y, ph, tw, log2n, drop, n_carriers,
+                            stream);
 }

@@ -3,7 +3,7 @@
 // The device half of frame_scan_even / _scan_rows
 // (tetraear_tpu/dsp/pallas_kernels.py); numpy reference:
 // framescan.host_scan_rows_even.  Shared by the fused back-half kernel
-// and, later, the standalone frame scan.
+// (backhalf.cu) and the standalone frame scan (frame_scan.cu).
 //
 // z holds the row's bits packed LSB first (bit j of word w is bit
 // 32w + j of the row).  The table (framescan.scan_words, SCAN_WORDS

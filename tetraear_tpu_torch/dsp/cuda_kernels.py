@@ -1,13 +1,22 @@
 """The receive path's hand-written CUDA kernels, their plain PyTorch
 versions and their build.
 
-Three kernels carry the fused receive path, each replacing one Pallas
-kernel of ``tetraear_tpu/dsp/pallas_kernels.py``:
+Each wrapper replaces one Pallas kernel of
+``tetraear_tpu/dsp/pallas_kernels.py``:
 
-  ``fft2p_planes_spliced``  csrc/fft2p.cu       fft2p_planes_spliced
-                                                 (+ fft2p_planes, o2 = 0)
-  ``band_synth``            csrc/band_synth.cu  band_synth(phasor_drop=)
-  ``fused_backhalf``        csrc/backhalf.cu    fused_backhalf
+  ``fft2p_planes_spliced``  csrc/fft2p.cu         fft2p_planes_spliced
+                                                   (+ fft2p_planes, o2 = 0)
+  ``band_synth``            csrc/band_synth.cu    band_synth(phasor_drop=)
+  ``band_synth_y``          csrc/band_synth.cu    band_synth (no phasor)
+  ``band_synth_ph``         csrc/band_synth.cu    band_synth(y_out=False)
+  ``fused_backhalf``        csrc/backhalf.cu      fused_backhalf
+  ``frame_scan_even``       csrc/frame_scan.cu    frame_scan_even
+  ``band_extract_rows``     csrc/band_extract.cu  band_extract_rows
+  ``band_extract``          csrc/band_extract.cu  band_extract
+
+The first, second and fifth carry the fused receive path; the classic
+chain runs ``band_synth_y`` (or an extraction kernel) and
+``frame_scan_even``.
 
 Dispatch rule: a wrapper given CPU tensors runs the plain PyTorch
 version of its function; given CUDA tensors it launches the kernel or
@@ -16,7 +25,8 @@ kernel launches of each wrapper (the plain versions do not count).
 
 The kernels are CUDA C++ for sm_90a with a plain C interface, compiled
 by ``nvcc`` at first use into ``build/tetraear_tpu_torch/`` of the
-checkout (keyed by a hash of the sources and flags) and loaded with
+checkout (one ``nvcc -c`` per source, all started together, then one
+link; keyed by a hash of the sources and flags) and loaded with
 ctypes.  Nothing is compiled or loaded at import time.  Launches go on
 PyTorch's current stream and do not synchronise; a wrapper may drop its
 scratch tensors on return because the caching allocator hands freed
@@ -41,7 +51,9 @@ from tetraear_tpu_torch.dsp import framescan
 
 TAILBITS = 1200
 
-launches = {"fft2p": 0, "band_synth": 0, "fused_backhalf": 0}
+launches = {"fft2p": 0, "band_synth": 0, "band_synth_y": 0,
+            "band_synth_ph": 0, "fused_backhalf": 0, "frame_scan_even": 0,
+            "band_extract_rows": 0, "band_extract": 0}
 
 
 def reset_launches() -> None:
@@ -55,14 +67,13 @@ def reset_launches() -> None:
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("common.cuh", "scan.cuh", "fft2p.cu", "band_synth.cu",
-            "backhalf.cu")
+            "backhalf.cu", "frame_scan.cu", "band_extract.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "tetraear_tpu_torch"
 # -fmad=false: no multiply-add contraction, so every float expression
 # rounds as the plain PyTorch version's separate ops do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_info: dict = {}
@@ -94,21 +105,42 @@ def build() -> ctypes.CDLL:
     t0 = time.time()
     log = ""
     if not so.exists():
+        # one compile per source, all started together, then one link
+        tag = f"{key}.{os.getpid()}"
+        units = [name for name in _SOURCES if name.endswith(".cu")]
+        objs = [BUILD_DIR / f"{Path(name).stem}.{tag}.o" for name in units]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(units, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [name for name, proc in zip(units, procs)
+                  if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
         tmp = so.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(_CSRC / s) for s in _SOURCES if s.endswith(".cu")]]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        log = r.stdout + r.stderr
+        r = subprocess.run(
+            [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += r.stdout + r.stderr
         if r.returncode:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{log}")
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(so))
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tt_fft2p.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.tt_band_synth.argtypes = ([vp, cl, vp, ci, vp, vp, vp, vp, vp]
-                                  + [ci] * 3 + [vp])
+                                  + [ci] * 4 + [vp])
     lib.tt_fused_backhalf.argtypes = [vp] * 14 + [ci] * 6 + [vp]
-    for fn in (lib.tt_fft2p, lib.tt_band_synth, lib.tt_fused_backhalf):
+    lib.tt_frame_scan_even.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    lib.tt_band_extract_rows.argtypes = [vp, cl, vp, vp, ci, ci, vp]
+    lib.tt_band_extract.argtypes = [vp, vp, vp, ci, ci, vp]
+    for fn in (lib.tt_fft2p, lib.tt_band_synth, lib.tt_fused_backhalf,
+               lib.tt_frame_scan_even, lib.tt_band_extract_rows,
+               lib.tt_band_extract):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)
     _lib = lib
@@ -242,6 +274,47 @@ def fft2p_plain(tail_p, x_p, n1, n2, wrap_k1):
 # kernel 2: band synthesis + timing phasor
 # ---------------------------------------------------------------------------
 
+def _band_synth_args(planes, h1_planes, row_starts, d_shift, m1c, m2re,
+                     m2im, twre, twim, rows_per_band) -> tuple:
+    """Shape, type and range checks shared by the three band_synth
+    forms; returns (C, P, D, R)."""
+    c = row_starts.shape[0] if row_starts.dim() == 1 else -1
+    p = int(rows_per_band)
+    n_rolls = h1_planes.shape[1] if h1_planes.dim() == 4 else -1
+    r_rows = planes.shape[1] if planes.dim() == 3 else -1
+    _check(planes, "planes", (2, r_rows, 128), torch.float32)
+    _check(h1_planes, "h1_planes", (2, n_rolls, p, 128), torch.float32)
+    _check(row_starts, "row_starts", (c,), torch.int32)
+    _check(d_shift, "d_shift", (c,), torch.int32)
+    _check(m1c, "m1c", (2 * p, 2 * p), torch.float32)
+    for name, t in (("m2re", m2re), ("m2im", m2im)):
+        _check(t, name, (128, 128), torch.float32)
+    for name, t in (("twre", twre), ("twim", twim)):
+        _check(t, name, (128, p), torch.float32)
+    return c, p, n_rolls, r_rows
+
+
+def _band_synth_launch(name, mode, planes, h1_planes, row_starts, d_shift,
+                       c, p, n_rolls, r_rows, phasor_drop) -> tuple:
+    """Launch csrc/band_synth.cu in ``mode`` (0: y and phasor, 1: y
+    only, 2: phasor only); returns (y or None, ph or None)."""
+    lg = _log2_exact(128 * p, "n_band")
+    if lg > 14:
+        raise ValueError(f"band_synth kernel: n_band <= 16384 (got {128 * p})")
+    dev = planes.device
+    lib = build()
+    y = (torch.empty((c, 2, 128, p), dtype=torch.float32, device=dev)
+         if mode != 2 else None)
+    ph = (torch.empty((c, 1, 128), dtype=torch.float32, device=dev)
+          if mode != 1 else None)
+    _launch(name, dev, lib.tt_band_synth, _ptr(planes), r_rows * 128,
+            _ptr(h1_planes), n_rolls, _ptr(row_starts), _ptr(d_shift),
+            _ptr(y) if y is not None else None,
+            _ptr(ph) if ph is not None else None,
+            _ptr(_twiddles(128 * p, dev)), lg, int(phasor_drop), c, mode)
+    return y, ph
+
+
 def band_synth(planes: torch.Tensor, h1_planes: torch.Tensor,
                row_starts: torch.Tensor, d_shift: torch.Tensor,
                m1c: torch.Tensor, m2re: torch.Tensor, m2im: torch.Tensor,
@@ -265,19 +338,9 @@ def band_synth(planes: torch.Tensor, h1_planes: torch.Tensor,
     Design: csrc/band_synth.cu computes the transform as one float32
     radix-2 FFT per carrier in shared memory; the Cooley-Tukey tables
     define it for the plain version only."""
-    c = row_starts.shape[0] if row_starts.dim() == 1 else -1
-    p = int(rows_per_band)
-    n_rolls = h1_planes.shape[1] if h1_planes.dim() == 4 else -1
-    r_rows = planes.shape[1] if planes.dim() == 3 else -1
-    _check(planes, "planes", (2, r_rows, 128), torch.float32)
-    _check(h1_planes, "h1_planes", (2, n_rolls, p, 128), torch.float32)
-    _check(row_starts, "row_starts", (c,), torch.int32)
-    _check(d_shift, "d_shift", (c,), torch.int32)
-    _check(m1c, "m1c", (2 * p, 2 * p), torch.float32)
-    for name, t in (("m2re", m2re), ("m2im", m2im)):
-        _check(t, name, (128, 128), torch.float32)
-    for name, t in (("twre", twre), ("twim", twim)):
-        _check(t, name, (128, p), torch.float32)
+    c, p, n_rolls, r_rows = _band_synth_args(
+        planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im, twre,
+        twim, rows_per_band)
     if phasor_drop % 4 or p % 4:
         raise ValueError("phasor fusion needs drop % 4 == 0 and "
                          f"P % 4 == 0 (drop={phasor_drop}, P={p})")
@@ -286,24 +349,70 @@ def band_synth(planes: torch.Tensor, h1_planes: torch.Tensor,
         return band_synth_plain(planes, h1_planes, row_starts, d_shift,
                                 m1c, m2re, m2im, twre, twim, p,
                                 phasor_drop)
-    lg = _log2_exact(128 * p, "n_band")
-    if lg > 14:
-        raise ValueError(f"band_synth kernel: n_band <= 16384 (got {128 * p})")
-    dev = planes.device
-    lib = build()
-    y = torch.empty((c, 2, 128, p), dtype=torch.float32, device=dev)
-    ph = torch.empty((c, 1, 128), dtype=torch.float32, device=dev)
-    _launch("band_synth", dev, lib.tt_band_synth, _ptr(planes),
-            r_rows * 128, _ptr(h1_planes), n_rolls, _ptr(row_starts),
-            _ptr(d_shift), _ptr(y), _ptr(ph), _ptr(_twiddles(128 * p, dev)),
-            lg, int(phasor_drop), c)
-    return y, ph
+    return _band_synth_launch("band_synth", 0, planes, h1_planes,
+                              row_starts, d_shift, c, p, n_rolls, r_rows,
+                              phasor_drop)
+
+
+def band_synth_y(planes: torch.Tensor, h1_planes: torch.Tensor,
+                 row_starts: torch.Tensor, d_shift: torch.Tensor,
+                 m1c: torch.Tensor, m2re: torch.Tensor, m2im: torch.Tensor,
+                 twre: torch.Tensor, twim: torch.Tensor,
+                 rows_per_band: int) -> torch.Tensor:
+    """band_synth without the phasor: returns y (C, 2, 128, P) only; the
+    kernel neither computes nor writes the phasor.  The classic chain's
+    channelizer step calls it (FFTChannelizer.step).
+
+    Replaces ``band_synth`` without ``phasor_drop`` (_band_synth_kernel,
+    tetraear_tpu/dsp/pallas_kernels.py).  Bound and design as
+    band_synth; a compile-time variant of csrc/band_synth.cu."""
+    c, p, n_rolls, r_rows = _band_synth_args(
+        planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im, twre,
+        twim, rows_per_band)
+    if _route(planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im,
+              twre, twim) == "cpu":
+        return band_synth_plain(planes, h1_planes, row_starts, d_shift,
+                                m1c, m2re, m2im, twre, twim, p, None)[0]
+    return _band_synth_launch("band_synth_y", 1, planes, h1_planes,
+                              row_starts, d_shift, c, p, n_rolls, r_rows,
+                              0)[0]
+
+
+def band_synth_ph(planes: torch.Tensor, h1_planes: torch.Tensor,
+                  row_starts: torch.Tensor, d_shift: torch.Tensor,
+                  m1c: torch.Tensor, m2re: torch.Tensor, m2im: torch.Tensor,
+                  twre: torch.Tensor, twim: torch.Tensor,
+                  rows_per_band: int, phasor_drop: int) -> torch.Tensor:
+    """band_synth's phasor alone: returns ph (C, 1, 128); the synthesis
+    runs in shared memory and y never reaches device memory.
+
+    Replaces ``band_synth(..., phasor_drop=drop, y_out=False)``
+    (_band_synth_phonly_kernel, tetraear_tpu/dsp/pallas_kernels.py), the
+    measurement variant that prices a scalar pre-pass.  Bound: device
+    memory, 64 KB in per carrier.  A compile-time variant of
+    csrc/band_synth.cu."""
+    c, p, n_rolls, r_rows = _band_synth_args(
+        planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im, twre,
+        twim, rows_per_band)
+    if phasor_drop % 4 or p % 4:
+        raise ValueError("phasor fusion needs drop % 4 == 0 and "
+                         f"P % 4 == 0 (drop={phasor_drop}, P={p})")
+    if _route(planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im,
+              twre, twim) == "cpu":
+        return band_synth_plain(planes, h1_planes, row_starts, d_shift,
+                                m1c, m2re, m2im, twre, twim, p,
+                                phasor_drop)[1]
+    return _band_synth_launch("band_synth_ph", 2, planes, h1_planes,
+                              row_starts, d_shift, c, p, n_rolls, r_rows,
+                              phasor_drop)[1]
 
 
 def band_synth_plain(planes, h1_planes, row_starts, d_shift, m1c, m2re,
                      m2im, twre, twim, p, phasor_drop):
     """Plain version of band_synth: the reference's three-matmul
-    Cooley-Tukey synthesis (i = l + 128 r, k = s + P t) in float32."""
+    Cooley-Tukey synthesis (i = l + 128 r, k = s + P t) in float32.
+    Returns (y, ph); ph is None when ``phasor_drop`` is None (the y-only
+    form)."""
     c = row_starts.shape[0]
     dev = planes.device
     rows = (row_starts.long()[:, None]
@@ -322,6 +431,8 @@ def band_synth_plain(planes, h1_planes, row_starts, d_shift, m1c, m2re,
     y2 = torch.matmul(m2re, u2) + torch.matmul(m2im, u2s)    # (C, 128, 2P)
     yre, yim = y2[..., :p], y2[..., p:]
     y = torch.stack([yre, yim], dim=1).contiguous()          # (C, 2, 128, P)
+    if phasor_drop is None:
+        return y, None
     k = (torch.arange(p, device=dev)[None, :]
          + p * torch.arange(128, device=dev)[:, None])       # (128, P)
     live = (k >= phasor_drop).to(torch.float32)
@@ -503,3 +614,159 @@ def fused_backhalf_plain(y, bt, rr, rc, sc, bsel, dsel, drop, k_max,
     bt2[:, :TAILBITS] = torch.gather(zpad, 1, src)
     return (corr, err, soft, bt2.reshape(c, tr, 128), last.contiguous(),
             misc)
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: standalone even-position frame scan
+# ---------------------------------------------------------------------------
+
+def frame_scan_even(bits: torch.Tensor) -> tuple:
+    """Even-position sync + burst-CRC scan of (C, n) uint8 {0,1} bit
+    rows.  Returns (corr (C, (n-22)//2 + 1) f32, crc_err
+    (C, (n-230)//2 + 1) int32): corr[c, pe] is the best TS1/TS2
+    agreement of bits[c, 2pe : 2pe+22] times float32(1/22), crc_err
+    [c, pe] the forward CRC-16 syndrome weight of the frame starting at
+    bit 2pe (99 for an all-zero or all-one data view); both planes at
+    their final widths.
+
+    corr is n_agree * float32(1/22), the reference kernel's own form
+    (the fused back-half kernel's too); host_scan_rows_even divides by
+    float32(22) instead, which differs in the last bit for some counts.
+    ``sparse_hits`` reads corr only through round(corr * 22), which
+    either form maps back to n_agree exactly.
+
+    Replaces ``frame_scan_even`` (tetraear_tpu/dsp/pallas_kernels.py).
+    Bound: device memory (n bytes in, 8 bytes per even position out).
+    Design: csrc/frame_scan.cu packs each row into 32-bit words in
+    shared memory and evaluates csrc/scan.cuh per position; no (C, R,
+    128) padding, selector tables or reshape passes."""
+    c = bits.shape[0] if bits.dim() == 2 else -1
+    n = bits.shape[1] if bits.dim() == 2 else -1
+    _check(bits, "bits", (c, n), torch.uint8)
+    if n < framescan.SYNC_LEN or n > 1_000_000:
+        raise ValueError(f"frame_scan_even: row of {n} bits (need "
+                         f"{framescan.SYNC_LEN} <= n <= 1000000)")
+    if _route(bits) == "cpu":
+        return frame_scan_even_plain(bits)
+    pe_n, pc_n = framescan.plane_dims(n)
+    pc_n = max(pc_n, 0)
+    dev = bits.device
+    lib = build()
+    corr = torch.empty((c, pe_n), dtype=torch.float32, device=dev)
+    err = torch.empty((c, pc_n), dtype=torch.int32, device=dev)
+    _launch("frame_scan_even", dev, lib.tt_frame_scan_even, _ptr(bits),
+            _ptr(_scan_tables(dev, True)), _ptr(corr), _ptr(err), n, pe_n,
+            pc_n, c)
+    return corr, err
+
+
+def frame_scan_even_plain(bits: torch.Tensor) -> tuple:
+    """Plain version of frame_scan_even: the 19-row stride-2 tap conv of
+    framescan.scan_taps (all sums exact small integers in float32)."""
+    c, n = bits.shape
+    dev = bits.device
+    pe_n, pc_n = framescan.plane_dims(n)
+    pc_n = max(pc_n, 0)
+    taps_k, c0, zs = _scan_tables(dev, False)
+    z = torch.nn.functional.pad(bits.to(torch.float32),
+                                (0, framescan.CRC_SPAN))
+    out = torch.nn.functional.conv1d(z[:, None, :], taps_k, stride=2)
+    n_agree = torch.maximum(out[:, 17, :pe_n] + zs[0],
+                            out[:, 18, :pe_n] + zs[1])
+    corr = n_agree * (1.0 / framescan.SYNC_LEN)
+    par = torch.remainder(out[:, :16, :pc_n], 2.0)
+    err = torch.abs(par - c0[None, :, None]).sum(dim=1)
+    ones = out[:, 16, :pc_n]
+    deg = (ones == 0.0) | (ones == float(framescan.DATA_BITS))
+    err = torch.where(deg, 99.0, err)
+    return corr.contiguous(), torch.round(err).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernels 5 and 6: per-carrier band extraction
+# ---------------------------------------------------------------------------
+
+def _check_starts(starts: torch.Tensor, name: str, limit: int,
+                  span: int) -> None:
+    """Every slice [start, start + span) must lie inside [0, limit]."""
+    if starts.numel() == 0:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(starts))
+    if lo < 0 or hi + span > limit:
+        raise ValueError(f"{name}: slices [{lo}, {hi + span}) leave the "
+                         f"{limit} rows of the spectrum")
+
+
+def band_extract_rows(planes: torch.Tensor, row_starts: torch.Tensor,
+                      rows_per_band: int) -> torch.Tensor:
+    """Per-carrier slices of 128-lane rows of the spectrum planes:
+    planes (2, R, 128) f32, row_starts (C,) int32 -> (C, 2, P, 128) f32
+    with out[c, pl] = planes[pl, row_starts[c] : row_starts[c] + P].
+
+    Replaces ``band_extract_rows`` (tetraear_tpu/dsp/pallas_kernels.py),
+    one DMA per carrier there.  Bound: device memory (every byte read
+    and written once).  Design: csrc/band_extract.cu, float4 copies on a
+    (carrier, plane, chunk) grid."""
+    c = row_starts.shape[0] if row_starts.dim() == 1 else -1
+    p = int(rows_per_band)
+    r_rows = planes.shape[1] if planes.dim() == 3 else -1
+    _check(planes, "planes", (2, r_rows, 128), torch.float32)
+    _check(row_starts, "row_starts", (c,), torch.int32)
+    if p < 1:
+        raise ValueError(f"rows_per_band={p}")
+    _check_starts(row_starts, "row_starts", r_rows, p)
+    if _route(planes, row_starts) == "cpu":
+        return band_extract_rows_plain(planes, row_starts, p)
+    if planes.data_ptr() % 16:
+        raise ValueError("planes: storage must be 16-byte aligned")
+    dev = planes.device
+    lib = build()
+    out = torch.empty((c, 2, p, 128), dtype=torch.float32, device=dev)
+    _launch("band_extract_rows", dev, lib.tt_band_extract_rows,
+            _ptr(planes), r_rows * 128, _ptr(row_starts), _ptr(out), p, c)
+    return out
+
+
+def band_extract_rows_plain(planes, row_starts, p):
+    """Plain version of band_extract_rows: the row index gather."""
+    rows = (row_starts.long()[:, None]
+            + torch.arange(p, device=planes.device)[None, :])   # (C, P)
+    return planes[:, rows, :].transpose(0, 1).contiguous()
+
+
+def band_extract(x_ext_r: torch.Tensor, starts: torch.Tensor,
+                 n_band: int) -> torch.Tensor:
+    """Per-carrier contiguous slices of the interleaved wrap-extended
+    spectrum: x_ext_r (N, 2) f32 [re, im] pairs, starts (C,) int32 ->
+    (C, n_band, 2) f32 with out[c] = x_ext_r[starts[c] : starts[c] +
+    n_band].
+
+    Replaces ``band_extract`` (tetraear_tpu/dsp/pallas_kernels.py).
+    Bound: device memory.  Design: csrc/band_extract.cu; a start is
+    aligned to 8 bytes only, so an odd start reads 8-byte pairs and
+    writes 16-byte vectors."""
+    c = starts.shape[0] if starts.dim() == 1 else -1
+    n_rows = x_ext_r.shape[0] if x_ext_r.dim() == 2 else -1
+    _check(x_ext_r, "x_ext_r", (n_rows, 2), torch.float32)
+    _check(starts, "starts", (c,), torch.int32)
+    n_band = int(n_band)
+    if n_band < 1:
+        raise ValueError(f"n_band={n_band}")
+    _check_starts(starts, "starts", n_rows, n_band)
+    if _route(x_ext_r, starts) == "cpu":
+        return band_extract_plain(x_ext_r, starts, n_band)
+    if x_ext_r.data_ptr() % 16:
+        raise ValueError("x_ext_r: storage must be 16-byte aligned")
+    dev = x_ext_r.device
+    lib = build()
+    out = torch.empty((c, n_band, 2), dtype=torch.float32, device=dev)
+    _launch("band_extract", dev, lib.tt_band_extract, _ptr(x_ext_r),
+            _ptr(starts), _ptr(out), n_band, c)
+    return out
+
+
+def band_extract_plain(x_ext_r, starts, n_band):
+    """Plain version of band_extract: the element index gather."""
+    idx = (starts.long()[:, None]
+           + torch.arange(n_band, device=x_ext_r.device)[None, :])
+    return x_ext_r[idx]

@@ -1,17 +1,30 @@
-"""Frame-scan tables, sparse hit keys and the host scan
-(tetraear_tpu/dsp/framescan.py).
+"""Device frame scan: sync correlation + dense burst CRC, sparse hit
+keys and the host scan (tetraear_tpu/dsp/framescan.py).
 
-The even-position sync + burst-CRC scan itself runs inside the fused
-back-half kernel (dsp/cuda_kernels.fused_backhalf).  This module holds
-what surrounds it:
+The even-position sync + burst-CRC scan runs in two kernels: inside the
+fused back half (dsp/cuda_kernels.fused_backhalf) and standalone
+(dsp/cuda_kernels.frame_scan_even, reached through
+``frame_scan_packed_even``) for the classic chain and the frame layer's
+own dispatch (``FrameScanKernel``).  This module holds what surrounds
+them:
 
   * the scan tables: the two training-sequence patterns, the 33-row CRC
     tap kernel over a 230-bit frame window and the CRC of the all-zero
     message (``_PATTERNS``, ``_CRC_KERNEL``, ``_CRC_C0``);
+  * the dense formulations in plain torch: ``frame_scan`` (every bit
+    position, forward and reversed CRC), ``frame_scan_packed`` and
+    ``frame_scan_packed_mm`` (the same values through the stride-8
+    packed conv and its im2col GEMM) and ``frame_scan_packed_even_conv``
+    (even positions, forward only) — the oracles of the kernel;
   * ``sparse_hits``: per-carrier top-K compaction of the dense scan
     planes into packed int32 keys, on the device;
-  * ``hits_from_keys`` and ``host_scan_rows_even``: the host side in
-    numpy, and the exact arithmetic reference of the kernel's scan.
+  * ``hits_from_keys``, ``unpack_hits_to_planes`` and
+    ``host_scan_rows_even``: the host side in numpy, and the exact
+    arithmetic reference of the kernel's scan.
+
+The reference casts its conv operands to bfloat16 for its matrix unit;
+every value is an integer of at most 237, so the float32 used here
+gives the same integers.
 
 Alignment contract (the JAX module's): for a bit row z, element pe of
 ``corr`` is the best TS1/TS2 agreement of z[2pe : 2pe+22] divided by
@@ -25,8 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tetraear_tpu.frame import burst as burst_mod
-from tetraear_tpu.frame import crc as crc_mod
+from tetraear_tpu_torch.frame import burst as burst_mod
+from tetraear_tpu_torch.frame import crc as crc_mod
 
 SYNC_LEN = 22
 TS_OFFSET_BITS = 216          # sync position - frame start (decoder.py)
@@ -82,6 +95,197 @@ def scan_taps() -> tuple:
     taps[16] = _CRC_KERNEL[32]
     taps[17:19, 0, :SYNC_LEN] = 2.0 * _PATTERNS - 1.0
     return taps, _CRC_C0.astype(np.float32), _SYNC_ZEROS
+
+
+def sync_corr(bits: torch.Tensor) -> torch.Tensor:
+    """(C, N) bits {0,1} -> (C, N-21) best TS1/TS2 agreement ratio."""
+    x = bits.to(torch.float32) * 2.0 - 1.0
+    pat = torch.from_numpy(_PATTERNS).to(bits.device) * 2.0 - 1.0
+    out = torch.nn.functional.conv1d(x[:, None, :], pat[:, None, :])
+    best = torch.amax(out, dim=1)
+    return (best + SYNC_LEN) / (2.0 * SYNC_LEN)
+
+
+def _syndromes(out_i: torch.Tensor, rev: bool) -> torch.Tensor:
+    """(C, 33, P) exact integer conv outputs -> (C, P) int32 CRC error
+    counts (min of forward and reversed with ``rev``), degenerate views
+    pinned to 99."""
+    dev = out_i.device
+    c0_2 = torch.from_numpy(
+        np.concatenate([_CRC_C0, _CRC_C0]).astype(np.int32)).to(dev)
+    syn = (out_i[:, 0:32] & 1) ^ c0_2[None, :, None]
+    err = syn[:, 0:16].sum(dim=1)
+    if rev:
+        err = torch.minimum(err, syn[:, 16:32].sum(dim=1))
+    ones = out_i[:, 32]
+    degenerate = (ones == 0) | (ones == DATA_BITS)
+    return torch.where(degenerate, 99, err).to(torch.int32)
+
+
+def crc_err_all(bits: torch.Tensor, rev: bool = True) -> torch.Tensor:
+    """(C, N) bits -> (C, N-229) min CRC error count per frame start;
+    ``rev=False`` checks the forward orientation only."""
+    x = bits.to(torch.float32)
+    kern = torch.from_numpy(_CRC_KERNEL).to(bits.device)
+    out = torch.nn.functional.conv1d(x[:, None, :], kern)
+    return _syndromes(torch.round(out).to(torch.int32), rev)
+
+
+def frame_scan(bits: torch.Tensor, rev: bool = True) -> dict:
+    """Full dense frame scan of a (C, N) bit matrix.
+
+    Returns {"corr": (C, N-21) float32, "crc_err": (C, N-229) int32}.
+    """
+    return {"corr": sync_corr(bits),
+            "crc_err": crc_err_all(bits, rev=rev)}
+
+
+# ---------------------------------------------------------------------------
+# Packed dense scan: the conv strided by 8, each stride phase with its
+# own copy of all 35 base rows (2 sync rows recast to the {0,1} plane +
+# 33 CRC rows) — 280 output channels, kernel length 237, identical
+# arithmetic.  A formulation shaped for a matrix unit; kept in plain
+# torch as the oracle of the even-position kernel.
+# ---------------------------------------------------------------------------
+
+PACK_STRIDE = 8
+_KPACK = CRC_SPAN + PACK_STRIDE - 1                  # 237
+
+
+def _packed_kernel(step: int = 1, rev: bool = True) -> np.ndarray:
+    """(rpp * 8/step, 1, 237) float32 packed taps.
+
+    Channel layout: ch = i * rpp + r for stride phase d = step * i in
+    [0,8) and base row r.  With ``rev`` rpp = 35: rows 0..32 the CRC
+    rows of _CRC_KERNEL, rows 33..34 the two sync patterns recast for a
+    {0,1} input.  With ``rev=False`` rpp = 19: the 16 reversed-payload
+    rows are dropped (the host completes that check per sync hit).
+    ``step=2`` keeps only the even stride phases."""
+    rows = ([*range(0, 33)] if rev
+            else [*range(0, 16), 32])            # fwd + ones
+    rpp = len(rows) + 2
+    base = np.zeros((rpp, _KPACK), np.float32)
+    base[0:len(rows), 0:CRC_SPAN] = _CRC_KERNEL[rows, 0, :]
+    base[len(rows):rpp, 0:SYNC_LEN] = 2.0 * _PATTERNS - 1.0
+    phases = range(0, PACK_STRIDE, step)
+    k = np.zeros((rpp * len(phases), 1, _KPACK), np.float32)
+    for i, d in enumerate(phases):
+        k[i * rpp:(i + 1) * rpp, 0, d:] = base[:, :_KPACK - d]
+    return k
+
+
+_PACKED_KERNEL = _packed_kernel()
+_PACKED_KERNEL_EVEN_FWD = _packed_kernel(step=2, rev=False)
+
+
+def _conv_and_reduce(bits: torch.Tensor, kernel: np.ndarray,
+                     nph: int, rpp: int = 35) -> tuple:
+    """Shared packed-conv + native-layout reduction.
+
+    kernel: (nph * rpp, 1, 237) stride-phase-packed taps.  Returns
+    (corr, err) as (C, J * nph) arrays linear in phase-index space:
+    element jj * nph + i is bit position 8 * jj + i * (8 // nph)."""
+    c, n = bits.shape
+    dev = bits.device
+    # 256 zero-pad bits: strided-valid coverage past every real position
+    x = torch.nn.functional.pad(bits.to(torch.float32), (0, 256))
+    out = torch.nn.functional.conv1d(
+        x[:, None, :], torch.from_numpy(kernel).to(dev),
+        stride=PACK_STRIDE)                          # (C, nph*rpp, J)
+    j = out.shape[2]
+    g = out.reshape(c, nph, rpp, j)
+    n_crc = rpp - 3                                       # 32 or 16
+    zs = torch.from_numpy(_SYNC_ZEROS).to(dev)
+    corr_p = torch.amax(g[:, :, rpp - 2:rpp, :]
+                        + zs[None, None, :, None], dim=2)  # (C, nph, J)
+    crc = g[:, :, 0:n_crc, :]
+    par = crc - 2.0 * torch.floor(crc * 0.5)              # v mod 2
+    c0f = torch.from_numpy(np.concatenate(
+        [_CRC_C0] * (n_crc // 16)).astype(np.float32)).to(dev)
+    syn = torch.abs(par - c0f[None, None, :, None])       # xor on {0,1}
+    err = syn[:, :, 0:16].sum(dim=2)                      # (C, nph, J)
+    ones = g[:, :, rpp - 3, :]
+    if n_crc == 32:
+        err = torch.minimum(err, syn[:, :, 16:32].sum(dim=2))
+    degenerate = (ones == 0.0) | (ones == float(DATA_BITS))
+    err = torch.where(degenerate, 99.0, err)
+    corr = corr_p.transpose(1, 2).reshape(c, j * nph)
+    errl = err.transpose(1, 2).reshape(c, j * nph)
+    corr = corr / float(SYNC_LEN)
+    return corr, errl
+
+
+def frame_scan_packed(bits: torch.Tensor) -> dict:
+    """Dense frame scan via the packed 280-channel conv.  Same contract
+    and values as ``frame_scan``."""
+    corr, errl = _conv_and_reduce(bits, _PACKED_KERNEL, PACK_STRIDE)
+    n = bits.shape[1]
+    return {"corr": corr[:, :n - SYNC_LEN + 1],
+            "crc_err": errl[:, :n - CRC_SPAN + 1].to(torch.int32)}
+
+
+def frame_scan_packed_even(bits: torch.Tensor,
+                           kernel_scan: bool = True) -> dict:
+    """Even-position dense frame scan of (C, N) uint8 {0,1} bit rows.
+
+    Returns {"corr": (C, (N-22)//2 + 1) float32,
+             "crc_err": (C, (N-230)//2 + 1) int32} where element pe
+    describes bit position p = 2 * pe; crc_err is the forward-only
+    verdict (the host completes the reversed check per sync hit).
+
+    Routes to the hand-written kernel (cuda_kernels.frame_scan_even;
+    its plain version for CPU tensors) unless ``kernel_scan`` is False
+    (the JAX package's TETRAEAR_NO_PALLAS_SCAN switch), which takes the
+    conv formulation ``frame_scan_packed_even_conv``.  The two differ
+    only in corr's last bit (n_agree * float32(1/22) against n_agree /
+    float32(22)), as in the reference."""
+    if not kernel_scan:
+        return frame_scan_packed_even_conv(bits)
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    corr, err = ck.frame_scan_even(
+        bits.to(torch.uint8).contiguous())
+    return {"corr": corr, "crc_err": err}
+
+
+def frame_scan_packed_even_conv(bits: torch.Tensor) -> dict:
+    """Even-position dense scan as the packed conv (the reference's
+    ``frame_scan_packed_even_xla``): values equal
+    ``frame_scan(bits, rev=False)[...][:, ::2]`` exactly.
+
+    The demod emits two bits per pi/4-DQPSK symbol and every assembly
+    step moves in whole symbols, so a real frame start can only sit at
+    an even bit index; scanning only those positions halves the work."""
+    corr, errl = _conv_and_reduce(bits, _PACKED_KERNEL_EVEN_FWD,
+                                  PACK_STRIDE // 2, rpp=19)
+    n = bits.shape[1]
+    return {"corr": corr[:, :(n - SYNC_LEN) // 2 + 1],
+            "crc_err": errl[:, :(n - CRC_SPAN) // 2 + 1]
+            .to(torch.int32)}
+
+
+def frame_scan_packed_mm(bits: torch.Tensor) -> dict:
+    """frame_scan_packed with the conv hand-rolled as an explicit
+    im2col GEMM: 30 shifted (C, J, 8) slices stacked to (C, J, 240),
+    then one (C*J, 240) x (240, 280) matmul.  Same values."""
+    c, n = bits.shape
+    dev = bits.device
+    x = torch.nn.functional.pad(bits.to(torch.float32), (0, 256))
+    npad = x.shape[1] - (x.shape[1] % PACK_STRIDE)
+    x8 = x[:, :npad].reshape(c, -1, PACK_STRIDE)        # (C, JJ, 8)
+    j = (npad - _KPACK) // PACK_STRIDE + 1
+    groups = _KPACK // PACK_STRIDE + 1                  # 30
+    cols = torch.cat(
+        [x8[:, g:g + j, :] for g in range(groups)], dim=2)  # (C, J, 240)
+    kmat = np.zeros((35 * PACK_STRIDE, groups * PACK_STRIDE), np.float32)
+    kmat[:, :_KPACK] = _PACKED_KERNEL[:, 0, :]
+    out = torch.einsum("cjk,ok->coj", cols, torch.from_numpy(kmat).to(dev))
+    out = out.reshape(c, PACK_STRIDE, 35, j)
+    out = out.permute(0, 2, 3, 1).reshape(c, 35, j * PACK_STRIDE)
+    zs = torch.from_numpy(_SYNC_ZEROS).to(dev)
+    sync = out[:, 33:35, :n - SYNC_LEN + 1]
+    corr = torch.amax(sync + zs[None, :, None], dim=1) / float(SYNC_LEN)
+    crc = torch.round(out[:, 0:33, :n - CRC_SPAN + 1]).to(torch.int32)
+    return {"corr": corr, "crc_err": _syndromes(crc, True)}
 
 
 def scan_words() -> np.ndarray:
@@ -161,6 +365,41 @@ def sparse_hits(corr: torch.Tensor, crc_err: torch.Tensor,
     return keys, counts
 
 
+def unpack_hits_to_planes(keys: np.ndarray, counts: np.ndarray,
+                          pe_n: int, pc_n: int, bits_rows_fn) -> tuple:
+    """Host side of the sparse scan: keys -> virtual dense planes.
+
+    Returns (corr (C, pe_n) float32, crc_err (C, pc_n) int32) whose
+    values at every position frame.batch reads are decision-equivalent
+    to the dense scan's: CRC verdicts are bitwise (clamped to 63, same
+    <= 2 outcome); corr is rebuilt from the exact integer agreement
+    count as f32(n)/f32(22), within 1.2e-7 of the device plane (the
+    kernel multiplies by a reciprocal).  Sub-threshold filler is 0.0 /
+    99.  Rows whose hit count overflowed the device budget are
+    recomputed exactly from their assembled bits:
+    ``bits_rows_fn(row_indices) -> (R, N) uint8``.  Kept as the
+    equivalence oracle of ``hits_from_keys``."""
+    keys = np.asarray(keys)
+    counts = np.asarray(counts)
+    c, kh = keys.shape
+    corr = np.zeros((c, pe_n), np.float32)
+    crc = np.full((c, pc_n), 99, np.int32)
+    r, i = np.nonzero(keys > 0)
+    kv = keys[r, i]
+    pe = pe_n - (kv >> _RANK_SHIFT)
+    corr[r, pe] = ((kv & ((1 << _CRC_SHIFT) - 1))
+                   .astype(np.float32) / np.float32(SYNC_LEN))
+    qc = pe - TS_OFFSET_BITS // 2
+    ok = (qc >= 0) & (qc < pc_n)
+    crc[r[ok], qc[ok]] = (kv[ok] >> _CRC_SHIFT) & _CRC_CLAMP
+    over = np.flatnonzero(counts > kh)
+    if len(over):
+        co, ce = host_scan_rows_even(bits_rows_fn(over))
+        corr[over] = co[:, :pe_n]
+        crc[over] = ce[:, :pc_n]
+    return corr, crc
+
+
 def hits_from_keys(keys: np.ndarray, counts: np.ndarray, pe_n: int,
                    pc_n: int, bits_rows_fn) -> tuple:
     """Host side of the sparse scan, O(hits) flat form.
@@ -217,8 +456,9 @@ def host_scan_rows_even(bits: np.ndarray) -> tuple:
 
     corr = n_agree/22 at float32, crc_err = forward-orientation syndrome
     weight with degenerate rows pinned to 99.  All sums are exact small
-    integers (f64 dot of {0,1} vectors).  The fused back-half kernel's
-    scan computes the same verdicts with popcounts."""
+    integers (f64 dot of {0,1} vectors).  The kernels' scan
+    (csrc/scan.cuh) computes the same verdicts with popcounts; its corr
+    is n_agree * float32(1/22), within 1.2e-7 of this one."""
     bits = np.asarray(bits, np.uint8)
     rr, n = bits.shape
     pe_n = (n - SYNC_LEN) // 2 + 1
@@ -237,3 +477,31 @@ def host_scan_rows_even(bits: np.ndarray) -> tuple:
     ones = out_i[..., 32]
     err = np.where((ones == 0) | (ones == DATA_BITS), 99, e_fwd)
     return corr, err.astype(np.int32)
+
+
+class FrameScanKernel:
+    """Standalone scan dispatch (the frame layer's own per-block scan).
+
+    ``packed=True`` (default) uses the packed conv; ``packed=False`` the
+    plain 2-conv reference formulation (same values; the oracle of the
+    packing tests).  ``even_only=True`` scans only symbol-aligned (even)
+    bit positions through the hand-written kernel
+    (frame_scan_packed_even; outputs indexed by p // 2 — callers must
+    scale, e.g. frame.batch with scan_stride=2).  ``kernel_scan=False``
+    takes the conv formulation there instead.  Bits go to ``device``
+    (None: the card) and the planes come back as numpy arrays."""
+
+    def __init__(self, packed: bool = True, even_only: bool = False,
+                 device=None, kernel_scan: bool = True):
+        from tetraear_tpu_torch.device import resolve
+        self.stride = 2 if even_only else 1
+        self.device = resolve(device)
+        if even_only:
+            self._scan = lambda b: frame_scan_packed_even(b, kernel_scan)
+        else:
+            self._scan = frame_scan_packed if packed else frame_scan
+
+    def scan(self, bits: np.ndarray) -> dict:
+        x = torch.from_numpy(np.ascontiguousarray(bits, np.uint8))
+        out = self._scan(x.to(self.device))
+        return {key: val.cpu().numpy() for key, val in out.items()}

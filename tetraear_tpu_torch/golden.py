@@ -2,7 +2,7 @@
 
 Each active carrier transmits real TETRA slots (training sequences,
 CRC-protected MAC resource PDUs carrying an SDS text) through the shared
-golden transmitter of ``tetraear_tpu.ref``; the wideband sum gets white
+golden transmitter of ``tetraear_tpu_torch.ref``; the wideband sum gets white
 noise over the whole band.  Everything is made from ``seed`` with
 numpy, so the capture is the same on every machine.
 """
@@ -13,8 +13,8 @@ import math
 
 import numpy as np
 
-from tetraear_tpu.ref import golden, modulator
-from tetraear_tpu.runtime.sources import IQSource
+from tetraear_tpu_torch.ref import golden, modulator
+from tetraear_tpu_torch.runtime.sources import IQSource
 
 SLOT_BITS = 510
 BIT_RATE = 36_000.0            # 18 ksym/s, 2 bits per symbol

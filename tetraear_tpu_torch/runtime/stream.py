@@ -1,11 +1,15 @@
-"""Offline decode runner on the fused receive path
-(tetraear_tpu/runtime/stream.py).
+"""Streaming runners (tetraear_tpu/runtime/stream.py).
 
-``DecodeRunner`` turns an IQ capture into CRC-checked frames: S blocks
-per batch go through ``FusedRx.step`` on the device, each block's scan
-planes compact to sparse hit keys (framescan.sparse_hits) and its
-symbols to 2-bit packed bytes, and only those cross to the host, where
-the shared frame layer selects and decodes in O(hits).
+``ScanRunner`` runs the demodulator over a capture, S blocks per batch,
+carrying the demod state.  ``DecodeRunner`` turns an IQ capture into
+CRC-checked frames: S blocks per batch go through the fused step
+(``FusedRx.step``) or, for banks it cannot serve, the classic chain
+(``backhalf.block_step_scan``) with a carried device bit tail; each
+block's scan planes compact to sparse hit keys (framescan.sparse_hits)
+and its symbols to 2-bit packed bytes, and only those cross to the
+host, where the frame layer selects and decodes in O(hits).
+``sparse=False`` fetches the dense planes instead (the differential
+oracle of the sparse path).
 
 The JAX runner chains S blocks in one ``lax.scan`` program; here the
 chain is a Python loop of asynchronous launches.  The device-to-host
@@ -20,8 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tetraear_tpu_torch.device import resolve
 from tetraear_tpu_torch.dsp import framescan, kernels
-from tetraear_tpu_torch.dsp.backhalf import TAILBITS, FusedRx
+from tetraear_tpu_torch.dsp.backhalf import (TAILBITS, block_step_scan,
+                                             try_fused)
 
 # hard-symbol transfer packing: 2-bit symbols ride 4 to a byte; the host
 # expands via one table lookup.  Validity is contiguous from index 0
@@ -77,47 +83,161 @@ def _to_host(tensors: list) -> tuple:
     return host, ev
 
 
+class ScanRunner:
+    """Demodulate many blocks per batch, carrying the bank state."""
+
+    def __init__(self, bank, blocks_per_dispatch: int = 16, device=None):
+        self.bank = bank
+        self.s = int(blocks_per_dispatch)
+        self.device = resolve(device)
+
+    def run(self, iq: np.ndarray, state=None) -> dict:
+        """Demod a capture in S-block batches.
+
+        Returns per-carrier symbol/soft streams (same layout as
+        CarrierBankDemod.run) plus the final carried state.
+        """
+        iq = np.asarray(iq, np.complex64)
+        bl = self.bank.block_len
+        fresh = state is None
+        state = (state if state is not None
+                 else self.bank.init_state(self.device))
+        c = self.bank.n_carriers
+        hards = [[] for _ in range(c)]
+        softs = [[] for _ in range(c)]
+        # drop the first differential output only on a fresh state (it
+        # references the zero-filled initial prev symbol)
+        first_block = fresh
+
+        pos = 0
+        while pos + bl <= len(iq):
+            take = min(self.s, (len(iq) - pos) // bl)
+            xs = iq[pos:pos + take * bl].reshape(take, bl)
+            xs_r = torch.from_numpy(kernels.c2r_np(xs)).to(self.device)
+            ys = []
+            for b in range(take):
+                out, state = self.bank._step_impl(xs_r[b], state)
+                ys.append((out["hard"], out["soft"], out["valid"]))
+            hard, soft, valid = (torch.stack(col).cpu().numpy()
+                                 for col in zip(*ys))
+            for b in range(take):
+                for ci in range(c):
+                    h = hard[b, ci][valid[b, ci]]
+                    s = soft[b, ci][valid[b, ci]]
+                    if first_block:
+                        h, s = h[1:], s[1:]
+                    hards[ci].append(h)
+                    softs[ci].append(s)
+                first_block = False
+            pos += take * bl
+        return {
+            "symbols": [np.concatenate(h) if h else np.zeros(0, np.uint8)
+                        for h in hards],
+            "soft_bits": [np.concatenate(s) if s else
+                          np.zeros((0, 2), np.float32) for s in softs],
+            "state": state,
+        }
+
+
 class DecodeRunner:
-    """IQ -> CRC-checked frames on the fused path, S blocks per batch.
+    """IQ -> CRC-checked frames, S blocks per batch.
 
     ``bank`` is a dsp.pipeline.CarrierBankDemod, ``batch`` the port's
-    frame.batch.BatchedFrameDecoder.  Raises ValueError when the bank
-    is not fused-eligible (FusedRx)."""
+    frame.batch.BatchedFrameDecoder.  ``backhalf.try_fused`` picks the
+    back half: the fused step where the bank is eligible, else the
+    classic chain with an on-device carried bit tail that mirrors the
+    host assembly of BatchedFrameDecoder (same tail length, same
+    zero-padded layout).  ``fused=False`` and ``kernel_scan=False`` are
+    the JAX package's TETRAEAR_NO_FUSED / TETRAEAR_NO_PALLAS_SCAN
+    switches.  Soft symbols are not fetched (they serve the voice path,
+    which is not ported)."""
 
     def __init__(self, bank, batch, blocks_per_dispatch: int = 16,
-                 device="cpu"):
+                 device=None, sparse: bool | None = None,
+                 sparse_k: int | None = None, fused: bool = True,
+                 kernel_scan: bool = True):
         self.bank = bank
         self.batch = batch
         self.s = int(blocks_per_dispatch)
+        self.device = resolve(device)
+        # sparse hit extraction (framescan.sparse_hits): the dense
+        # corr/crc planes compact to ~C*(K+1) int32s on device;
+        # sparse=False keeps the dense-plane fetch as the oracle
+        self.sparse = True if sparse is None else bool(sparse)
+        self.sparse_k = int(sparse_k if sparse_k is not None
+                            else framescan.SPARSE_K)
+        self.kernel_scan = bool(kernel_scan)
         self.k = bank.k_max
-        self.t2 = 2 * batch.T
-        if self.t2 != TAILBITS:
-            raise ValueError(f"frame tail of {self.t2} bits; the fused "
-                             f"back half carries {TAILBITS}")
-        if batch.scan_stride != 2:
-            raise ValueError("the fused scan is even-position only")
-        self.fused = FusedRx(bank, device)
-        self.device = self.fused.device
+        self.t2 = 2 * batch.T                 # carried tail bits
         self._pe_n, self._pc_n = framescan.plane_dims(self.t2 + 2 * self.k)
+        if batch.scan_stride != 2:
+            raise ValueError("the device scan is even-position only")
+        self.fused = None
+        if self.t2 == TAILBITS:               # FusedRx carries TAILBITS
+            self.fused, self._backhalf_reason = try_fused(
+                bank, self.device, fused)
+        else:
+            self._backhalf_reason = f"t2={self.t2} != TAILBITS"
         self.dispatches = 0
-        # the device tail replaces the host's first-symbol drop
+        self._tail_bits = None         # persists across run() calls
+        # the device tail replicates the host tail; the first-diff-symbol
+        # drop is skipped on both sides (one garbage symbol at the stream
+        # head cannot form a frame)
         batch._first = False
 
-    def _block(self, x_p: torch.Tensor, state: dict) -> tuple:
+    def init_state(self) -> dict:
+        """Initial carried state of the selected back half."""
+        return (self.fused.init_state() if self.fused
+                else self.bank.init_state(self.device))
+
+    def reset_stream(self, batch) -> None:
+        """Restart the decode stream on a FRESH batch layer (clean bit
+        tails, dedup watermarks and per-carrier protocol state), e.g.
+        between independent captures or after a warm-up pass."""
+        assert 2 * batch.T == self.t2, (batch.T, self.t2)
+        batch._first = False
+        self.batch = batch
+        self._tail_bits = None
+
+    def _scan_outputs(self, corr, crc_err) -> tuple:
+        """Per-block scan results to fetch: dense verdict planes, or the
+        compacted top-K hit keys + counts in sparse mode."""
+        if not self.sparse:
+            return (corr, crc_err)
+        # the host decodes key positions with these widths
+        assert corr.shape[1] == self._pe_n, (corr.shape, self._pe_n)
+        return framescan.sparse_hits(corr, crc_err, self.sparse_k)
+
+    def _block_fused(self, x_p: torch.Tensor, state: dict) -> tuple:
         """One block: fused step, hard symbols from the soft signs
-        (hard msb = d_im < 0 = soft0 > 0), sparse keys."""
+        (hard msb = d_im < 0 = soft0 > 0)."""
         out, state = self.fused.step(x_p, state)
         soft = self.fused.soft_symbols(out["soft_planes"])
         hard = (((soft[:, :, 0] > 0).to(torch.uint8) << 1)
                 | (soft[:, :, 1] > 0).to(torch.uint8))
         n_valid = out["n_valid"]
         k_r = torch.arange(self.k, device=self.device)[None, :]
-        # the host decodes key positions with these widths
-        assert out["corr"].shape[1] == self._pe_n, (out["corr"].shape,
-                                                    self._pe_n)
-        keys, counts = framescan.sparse_hits(out["corr"], out["crc_err"])
-        return (masked_pack(hard, k_r < n_valid[:, None]), n_valid, keys,
-                counts), state
+        valid = k_r < n_valid[:, None]
+        scan_out = self._scan_outputs(out["corr"], out["crc_err"])
+        if self.sparse:
+            return (masked_pack(hard, valid), n_valid, *scan_out), state
+        return (hard, valid, *scan_out), state
+
+    def _block_classic(self, x_r: torch.Tensor, state: dict,
+                       tail_bits: torch.Tensor) -> tuple:
+        """One block of the classic chain (backhalf.block_step_scan)."""
+        scan, state, tail_bits, n_c, out = block_step_scan(
+            self.bank, x_r, state, tail_bits, self.kernel_scan)
+        scan_out = self._scan_outputs(scan["corr"], scan["crc_err"])
+        if self.sparse:
+            # compact transfer: packed symbols + valid COUNTS (the
+            # masked symbols and the contiguous-validity invariant make
+            # the host reconstruction exact — see pack_syms)
+            ys = (masked_pack(out["hard"], out["valid"]),
+                  n_c.to(torch.int32), *scan_out)
+        else:
+            ys = (out["hard"], out["valid"], *scan_out)
+        return ys, state, tail_bits
 
     def run(self, iq: np.ndarray, state=None, on_frames=None) -> dict:
         """Decode a capture; returns {"frames": [...], "state": ...}.
@@ -125,19 +245,29 @@ class DecodeRunner:
         iq = np.asarray(iq, np.complex64)
         bl = self.bank.block_len
         if state is None:
-            state = self.fused.init_state()
+            state = self.init_state()
+        if self._tail_bits is None:
+            self._tail_bits = torch.zeros(
+                (self.bank.n_carriers, self.t2), dtype=torch.uint8,
+                device=self.device)
+        tail_bits = self._tail_bits
         frames_all = []
 
         def parse(take, host, event):
             if event is not None:
                 event.synchronize()
-            packed, n_valid, keys, counts = (t.numpy() for t in host)
+            hard, valid, scan_a, scan_b = (t.numpy() for t in host)
             for b in range(take):
-                hard_b, valid_b = unpack_block(packed[b], n_valid[b],
-                                               self.k)
-                frames = self.batch.process_scanned_sparse(
-                    hard_b, None, valid_b, keys[b], counts[b],
-                    self._pe_n, self._pc_n)
+                if self.sparse:
+                    hard_b, valid_b = unpack_block(hard[b], valid[b],
+                                                   self.k)
+                    frames = self.batch.process_scanned_sparse(
+                        hard_b, None, valid_b, scan_a[b], scan_b[b],
+                        self._pe_n, self._pc_n)
+                else:
+                    frames = self.batch.process_scanned(
+                        hard[b], None, valid[b].astype(bool), scan_a[b],
+                        scan_b[b])
                 if frames and on_frames:
                     on_frames(frames)
                 frames_all.extend(frames)
@@ -147,11 +277,19 @@ class DecodeRunner:
         while pos + bl <= len(iq):
             take = min(self.s, (len(iq) - pos) // bl)
             xs = iq[pos:pos + take * bl].reshape(take, bl)
-            xs_p = torch.from_numpy(kernels.c2p_np(xs)).to(self.device)
             ys = []
-            for b in range(take):
-                y, state = self._block(xs_p[b], state)
-                ys.append(y)
+            if self.fused:
+                # planar (take, 2, N): the spliced fft2p input layout
+                xs_d = torch.from_numpy(kernels.c2p_np(xs)).to(self.device)
+                for b in range(take):
+                    y, state = self._block_fused(xs_d[b], state)
+                    ys.append(y)
+            else:
+                xs_d = torch.from_numpy(kernels.c2r_np(xs)).to(self.device)
+                for b in range(take):
+                    y, state, tail_bits = self._block_classic(
+                        xs_d[b], state, tail_bits)
+                    ys.append(y)
             host, event = _to_host([torch.stack(col) for col in zip(*ys)])
             self.dispatches += 1
             if pending is not None:
@@ -160,4 +298,5 @@ class DecodeRunner:
             pos += take * bl
         if pending is not None:
             parse(*pending)
+        self._tail_bits = tail_bits
         return {"frames": frames_all, "state": state}
