@@ -15,7 +15,11 @@ port's receive paths on the card in phases, one line per result:
      geometries, with the error, the tolerance, the times of kernel,
      plain version and (where one exists) the single PyTorch call that
      computes the same function, and the bound: the least time the card
-     could take, from the bytes moved and the operations done;
+     could take, from the bytes moved and the operations done; then the
+     two redesigned kernels at the other geometries the paths use:
+     fft2p at nfft 2^14 and 2^18 with and without splice and wrap rows,
+     fused_backhalf at C=8 / 2.304 MHz with 0, half and all symbols
+     valid;
   4. decode small: Pipeline.run_offline on a golden 8-carrier capture at
      2.304 MHz on the card and on the CPU (fused path);
   5. decode fleet: Pipeline.run_offline at C=1024 / 36.864 MHz on the
@@ -26,8 +30,12 @@ port's receive paths on the card in phases, one line per result:
   7. decode fleet-afc and fleet-aligned: the classic chain at C=1024 on
      the same 36.864 MHz capture (its CRC-passing frames must equal the
      fused path's) and on a 40.96 MHz capture (aligned grid; default
-     synthesis kernel, then the row-extraction kernel), and a small run
-     through the element-extraction kernel;
+     synthesis kernel, then the row-extraction kernel), a small run
+     through the element-extraction kernel, and the probes: the
+     phasor-only synthesis as a pre-pass, fft2p's pass 1 alone taken
+     through a plain pass 2, the back half's bit placement alone on a
+     fused block's decisions, the elementwise operations, and the serial
+     recursion inside one kernel against its host-driven form;
   8. chain: ms/block and the realtime factor of the chained block step
      on a resident noise block, fused (C=1024, C=10240) and classic
      (fleet-afc, fleet-aligned, bench-afc), with launches per block.
@@ -53,6 +61,7 @@ Two other modes print no result line and exit non-zero:
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +74,7 @@ CSRC = "tetraear_tpu_torch/dsp/csrc/"
 # name -> (source, file:line of the TPU kernel it replaces)
 KERNELS = {
     "fft2p": (CSRC + "fft2p.cu", PK + ":1603"),
+    "fft2p_pass1": (CSRC + "fft2p.cu", "perf/fft2p_stage_probe.py:103"),
     "band_synth": (CSRC + "band_synth.cu", PK + ":325"),
     "fused_backhalf": (CSRC + "backhalf.cu", PK + ":1013"),
     "band_synth_y": (CSRC + "band_synth.cu", PK + ":284"),
@@ -72,6 +82,9 @@ KERNELS = {
     "frame_scan_even": (CSRC + "frame_scan.cu", PK + ":1203"),
     "band_extract_rows": (CSRC + "band_extract.cu", PK + ":107"),
     "band_extract": (CSRC + "band_extract.cu", PK + ":56"),
+    "bit_place": (CSRC + "probes.cu", "perf/place_probe.py:70"),
+    "ops_probe": (CSRC + "probes.cu", "perf/mosaic_ops_probe.py:31"),
+    "iir_recursion": (CSRC + "probes.cu", "perf/scan_overhead_probe.py:135"),
 }
 FUSED_KERNELS = ("fft2p", "band_synth", "fused_backhalf")
 
@@ -182,7 +195,7 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
     import numpy as np
     import torch
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
-    from tetraear_tpu_torch.dsp import framescan
+    from tetraear_tpu_torch.dsp import probes
     from tetraear_tpu_torch.dsp.backhalf import FusedRx
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
 
@@ -229,6 +242,24 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         fail(f"fft2p C={c}: max err {max(err, err0):.3e} > {tol:.3e}")
     planes = ref
     del got, win, win_c
+
+    # pass 1 alone against its plain version; pass 2's time is the rest
+    g_k = ck.fft2p_pass1(*args1[:4])
+    g_p = ck.fft2p_pass1_plain(*args1[:4])
+    err_g, rms_g = max_err(g_k, g_p)
+    tol_g = 1e-4 * rms_g
+    if not err_g <= tol_g:
+        fail(f"fft2p_pass1 C={c}: max err {err_g:.3e} > {tol_g:.3e}")
+    plan = ck.fft2p_plan(n1, n2)
+    res["fft2p_pass1"] = {
+        "max_abs_err": err_g, "tol": tol_g,
+        "ms": event_ms(lambda: ck.fft2p_pass1(*args1[:4]), reps),
+        "plain_ms": event_ms(lambda: ck.fft2p_pass1_plain(*args1[:4]),
+                             reps),
+        "library_ms": None,
+        **bound(nbytes(tail_p, x3, g_k),
+                nfft_ * (5.0 * math.log2(plan.la) + 6.0))}
+    del g_k, g_p
 
     args2 = (planes, fused.h1_planes, fused.row_start, fused.d_shift,
              fused.m1c, fused.m2re, fused.m2im, fused.twre, fused.twim,
@@ -316,6 +347,7 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         **bound(nbytes(*[a for a in args3 if isinstance(a, torch.Tensor)],
                        *out_k),
                 c * (SCAN_OPS * n_pos + 40.0 * nb))}
+    bt_probe = state["bit_tail"]
     del out_k, out_p, y_p, args3, g
 
     # standalone frame scan: rows of 1200 + 2 k_max bits
@@ -383,6 +415,50 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         "library_ms": event_ms(lambda: x_ext[idx], reps),
         **bound(2 * nbytes(got) + nbytes(st), 0.0)}
     del got, want, idx, x_ext
+
+    # the placement probe: random decisions of k_max - 2 .. k_max valid
+    # symbols on the carried tail of the state above
+    ns = 128 * fused.sy
+    z_rows = ck.z_rows_for(fused.p)
+    n_val = rng.integers(bank.k_max - 2, bank.k_max + 1, c)
+    hard = rng.integers(0, 4, (c, ns)).astype(np.uint8)
+    hard[np.arange(ns)[None, :] >= n_val[:, None]] = 0
+    hard = torch.from_numpy(hard).to(dev)
+    dsel = torch.from_numpy((n_val - (bank.k_max - 2)).astype(np.int32)
+                            ).to(dev)
+    args4 = (hard, bt_probe, dsel, bank.k_max, z_rows)
+    z_k, bt2_k = probes.bit_place(*args4)
+    z_p, bt2_p = probes.bit_place_plain(*args4)
+    if not (torch.equal(z_k, z_p) and torch.equal(bt2_k, bt2_p)):
+        fail(f"bit_place C={c}: {(z_k != z_p).sum().item()} words of z and "
+             f"{(bt2_k != bt2_p).sum().item()} tail bits differ")
+    res["bit_place"] = {
+        "max_abs_err": 0.0, "tol": 0.0,
+        "ms": event_ms(lambda: probes.bit_place(*args4), reps),
+        "plain_ms": event_ms(lambda: probes.bit_place_plain(*args4), reps),
+        "library_ms": None,
+        **bound(nbytes(hard, bt_probe, dsel, z_k, bt2_k),
+                c * (4.0 * ns + 6.0 * 128 * bt_probe.shape[1]))}
+    del hard, z_k, z_p, bt2_k, bt2_p, bt_probe, state
+
+    res["ops_probe"] = check_ops_probe(reps)
+
+    # the serial recursion: one subframe of 60 samples, four rows a carrier
+    a_iir, x_iir = iir_inputs(4 * c, 60, rng)
+    y_k, m_k = probes.iir_recursion(a_iir, x_iir)
+    y_p, m_p = probes.iir_recursion_plain(a_iir, x_iir)
+    if not (torch.equal(y_k, y_p) and torch.equal(m_k, m_p)):
+        fail(f"iir_recursion B={4 * c}: {(y_k != y_p).sum().item()} samples "
+             f"differ from the host-driven recursion")
+    res["iir_recursion"] = {
+        "max_abs_err": 0.0, "tol": 0.0,
+        "ms": event_ms(lambda: probes.iir_recursion(a_iir, x_iir), reps),
+        "plain_ms": event_ms(
+            lambda: probes.iir_recursion_plain(a_iir, x_iir), min(reps, 3)),
+        "library_ms": None,
+        **bound(nbytes(a_iir, x_iir, y_k, m_k),
+                IIR_OPS * x_iir.shape[0] * x_iir.shape[1])}
+    del y_k, y_p, m_k, m_p
     sync()
     for name, r in res.items():
         lib = ("none" if r["library_ms"] is None
@@ -396,13 +472,157 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
     say(f"kernel fft2p C={c}, unspliced window (o2 = 0): kernel "
         f"{r['unspliced_ms']:.4f} ms, plain {r['unspliced_plain_ms']:.4f} "
         f"ms; same bound, library call and error limit")
+    say(f"kernel fft2p C={c}, by pass: pass 1 "
+        f"{res['fft2p_pass1']['ms']:.4f} ms (fft2p_pass1, timed alone); "
+        f"pass 2 about {r['ms'] - res['fft2p_pass1']['ms']:.4f} ms (not "
+        f"timed: fft2p less fft2p_pass1, a difference of two means); "
+        f"plan {plan}")
     return res
 
 
-# operations of one even position of the popcount scan (csrc/scan.cuh):
-# 8 funnel shifts (3 each), 17 rows of 8 words (and, popc, add), the
-# parity fold of 16 rows (5 each) and the two sync comparisons
-SCAN_OPS = 8 * 3 + 17 * 8 * 3 + 16 * 5 + 10.0
+def ops_inputs() -> dict:
+    """Operation -> (a, b) of the elementwise probe: 1024 values over
+    (0.1, 6) and a second operand for the (8, 128) operations, a
+    (128, 64) ramp and a column for the layout idioms."""
+    import numpy as np
+    import torch
+    x = np.linspace(0.1, 6.0, 8 * 128, dtype=np.float32).reshape(8, 128)
+    y = (x * 0.5 + 0.3).astype(np.float32)
+    a = np.arange(128 * 64, dtype=np.float32).reshape(128, 64)
+    col = np.arange(128, dtype=np.float32)
+    x, y, a, col = (torch.from_numpy(v).to(DEV) for v in (x, y, a, col))
+    from tetraear_tpu_torch.dsp import probes
+    return {op: ((a if op in ("bcast_col", "iota_sel_mm", "scalar_red_row")
+                  else x),
+                 (y if op in ("mod", "arctan2")
+                  else col if op == "bcast_col" else None))
+            for op in probes.OPS}
+
+
+def check_ops_probe(reps: int) -> dict:
+    """Every operation of the elementwise probe against the PyTorch
+    operation: bit for bit where the operation is exact, the float
+    functions within 2e-6 of max(1, |reference|), the reduction within
+    1e-5 of its value.  Times are means over the twelve launches; the
+    plain version of an operation is the single PyTorch call."""
+    from tetraear_tpu_torch.dsp import probes
+    inputs = ops_inputs()
+    worst, worst_rel, tol, moved, ops = 0.0, 0.0, 0.0, 0, 0.0
+    for op, (a, b) in inputs.items():
+        got = probes.ops_probe(op, a, b)
+        ref = probes.ops_probe_plain(op, a, b)
+        if got.shape != ref.shape:
+            fail(f"ops_probe {op}: shape {tuple(got.shape)}")
+        err = (got.double() - ref.double()).abs()
+        scale = ref.double().abs().clamp(min=1.0)
+        rel = (err / scale).max().item()
+        exact = probes.OPS[op][2]
+        limit = 0.0 if exact else 1e-5 if op == "scalar_red_row" else 2e-6
+        if not rel <= limit:
+            fail(f"ops_probe {op}: differs from the PyTorch operation by "
+                 f"{rel:.3e} of max(1, |reference|) (limit {limit:.1e})")
+        if op != "scalar_red_row":       # its sums are of the order 1e11
+            worst = max(worst, err.max().item())
+            tol = max(tol, limit * scale.max().item())
+        worst_rel = max(worst_rel, rel)
+        moved += nbytes(a, got) + (nbytes(b) if b is not None else 0)
+        ops += a.numel()
+    n_ops = len(inputs)
+
+    def run(fn):
+        for op, (a, b) in inputs.items():
+            fn(op, a, b)
+
+    plain_ms = event_ms(lambda: run(probes.ops_probe_plain), reps) / n_ops
+    return {"max_abs_err": worst, "tol": tol,
+            "max_rel_err": worst_rel,
+            "ms": event_ms(lambda: run(probes.ops_probe), reps) / n_ops,
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            **bound(moved / n_ops, ops / n_ops)}
+
+
+def iir_inputs(b: int, n: int, rng) -> tuple:
+    """(a (b, 10), x (n, b)) int32 on the device: coefficients within
+    2000 and excitation within 3000, a stable synthesis filter's range."""
+    import numpy as np
+    import torch
+    a = rng.integers(-2000, 2000, (b, 10)).astype(np.int32)
+    x = rng.integers(-3000, 3000, (n, b)).astype(np.int32)
+    return torch.from_numpy(a).to(DEV), torch.from_numpy(x).to(DEV)
+
+
+def phase_kernels_extra(seed: int) -> None:
+    """The two redesigned kernels at the other geometries the paths
+    use: fft2p at nfft 2^14 (128 x 128) and 2^18 (512 x 512) with and
+    without splice and wrap rows; fused_backhalf at C=8 / 2.304 MHz with
+    no, half and all symbols valid."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp.backhalf import FusedRx
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEV)
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    for n1, n2 in ((128, 128), (512, 512)):
+        for o2, wrap in ((0, 0), (0, 2), (8, 0), (64, 2)):
+            args = (randn(2, o2, n1), randn(2, n2 - o2, n1), n1, n2, wrap)
+            ref = ck.fft2p_plain(*args)
+            err, rms = max_err(ck.fft2p_planes_spliced(*args), ref)
+            g_p = ck.fft2p_pass1_plain(*args[:4])
+            err_g, rms_g = max_err(ck.fft2p_pass1(*args[:4]), g_p)
+            if not (err <= 1e-4 * rms and err_g <= 1e-4 * rms_g):
+                fail(f"fft2p {n1} x {n2}, o2 {o2}, wrap {wrap}: max err "
+                     f"{err:.3e} (tol {1e-4 * rms:.3e}), pass 1 "
+                     f"{err_g:.3e} (tol {1e-4 * rms_g:.3e})")
+        say(f"kernel fft2p {n1} x {n2}: o2 0, 8, 64 and wrap 0, 2 within "
+            f"1e-4 of the RMS of the plain versions (last: {err:.3e} of "
+            f"{rms:.3e}, pass 1 {err_g:.3e} of {rms_g:.3e})")
+
+    bank = CarrierBankDemod(fs=FS_SMALL, freqs_hz=grid(8), frontend="fft")
+    fused = FusedRx(bank, DEV)
+    ns = 128 * fused.sy
+    state = fused.init_state()
+    state["bank"]["timing"]["tail"] = randn(8, 4, 2)
+    state["bank"]["prev_sym"] = randn(8, 2)
+    state["bit_tail"][:, :, :] = torch.from_numpy(
+        rng.integers(0, 2, (8, 10, 128)).astype(np.float32)).to(dev)
+    state["bit_tail"].view(8, -1)[:, ck.TAILBITS:] = 0.0
+    rot = (torch.ones(8, device=dev), torch.zeros(8, device=dev))
+    g = fused.glue(randn(8, 1, 128), rot, state)
+    for nv in (0, ns // 2, ns):
+        g["sc"][:, 4] = float(nv)
+        args = fused.backhalf_args(randn(8, 2, 128, fused.p), g, state)
+        out_k = ck.fused_backhalf(*args)
+        out_p = ck.fused_backhalf_plain(*args, ck.z_rows_for(fused.p))
+        for name, a, b in zip(("corr", "err", "soft", "bt2", "last",
+                               "misc"), out_k, out_p):
+            e, _ = max_err(a, b)
+            exact = name in ("corr", "err", "bt2")
+            if (exact and e != 0.0) or e > 1e-6:
+                fail(f"fused_backhalf C=8, {nv} valid symbols: {name} "
+                     f"differs by {e:.3e}")
+    say(f"kernel fused_backhalf C=8 at {FS_SMALL / 1e6:g} MHz: 0, "
+        f"{ns // 2} and {ns} valid symbols equal to the plain version")
+
+
+# operations of one even position of the scan (csrc/scan.cuh), a
+# three-input logic operation (and-xor, and-or) counted as one: 8 funnel
+# shifts; the sync test (mask, 2 xor, 2 population counts, 2 subtractions,
+# max); the all-zero / all-one test of the data view (2 a word, compare
+# and combine); 16 syndrome rows folded over 8 words (and-xor), each with
+# one population count and its bit put in place (mask-shift, or); the
+# syndrome's distance (xor, population count).  213, 19 of them counts.
+SCAN_OPS = 8 + 8 + (8 * 2 + 3) + 16 * 8 + 16 * 3 + 2.0
+# operations of one sample of one row of the serial recursion
+# (csrc/probes.cu): the shift pair, ten multiplies each with a saturating
+# subtraction (widen, subtract, two clamps), the output's shift and sign
+# extension, ten register moves, load and store
+IIR_OPS = 2 + 10 * 6 + 2 + 10 + 2.0
 
 
 def frames_key(frames: list) -> list:
@@ -734,6 +954,143 @@ def phase_phasor_probe(fs: float, c: int, nfft: int | None) -> dict:
     return counts
 
 
+def phase_pass1_probe(fs: float, c: int, nfft: int | None) -> dict:
+    """The pass-1 probe on one wideband block: fft2p_pass1's G, taken
+    through a plain pass 2, must give the planes the whole kernel
+    gives, so a fault lies in the pass that disagrees."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    ch = CarrierBankDemod(fs=fs, freqs_hz=grid(c), frontend="fft",
+                          nfft=nfft).channelizer
+    n1, n2 = ch.fft2p_n1, ch.fft2p_n2
+    o2 = ch.overlap // n1
+    rng = np.random.default_rng(29)
+    win = torch.from_numpy(rng.standard_normal(
+        (2, n2, n1)).astype(np.float32)).to(DEV)
+    tail_p, x_p = win[:, :o2].contiguous(), win[:, o2:].contiguous()
+    ck.reset_launches()
+    g = ck.fft2p_pass1(tail_p, x_p, n1, n2)
+    planes = ck.fft2p_planes_spliced(tail_p, x_p, n1, n2, ch.fft2p_wrap)
+    sync()
+    counts = dict(ck.launches)
+    need_launched("pass-1 probe", counts, ("fft2p_pass1", "fft2p"))
+    err, rms = max_err(ck.fft2p_pass2_plain(g, n1, n2, ch.fft2p_wrap),
+                       planes)
+    if not err <= 1e-4 * rms:
+        fail(f"pass-1 probe C={c}: a plain pass 2 over fft2p_pass1's G "
+             f"differs from fft2p by {err:.3e} (tol {1e-4 * rms:.3e})")
+    say(f"pass-1 probe C={c}: plain pass 2 over G within {err:.3e} of "
+        f"fft2p's planes (tol {1e-4 * rms:.3e}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase_place_probe(fs: float, c: int, nfft: int | None) -> dict:
+    """The placement probe on one fused block: from the block's soft
+    bits (a decision bit is set where its soft bit is positive) and
+    valid counts, bit_place alone must rebuild the carried bit tail the
+    fused back half hands on."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp import probes
+    from tetraear_tpu_torch.dsp.backhalf import FusedRx
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    bank = CarrierBankDemod(fs=fs, freqs_hz=grid(c), frontend="fft",
+                            nfft=nfft)
+    fused = FusedRx(bank, DEV)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, bank.block_len)).astype(np.float32)).to(DEV)
+    state = fused.init_state()
+    state["bit_tail"].view(c, -1)[:, :ck.TAILBITS] = torch.from_numpy(
+        rng.integers(0, 2, (c, ck.TAILBITS)).astype(np.float32)).to(DEV)
+    out, new_state = fused.step(x, state)
+    ns = 128 * fused.sy
+    n_valid = out["n_valid"]
+    flat = out["soft_planes"].transpose(2, 3).reshape(c, 2, ns)
+    valid = torch.arange(ns, device=DEV)[None, :] < n_valid[:, None]
+    hard = ((2 * (flat[:, 0] > 0) + (flat[:, 1] > 0)) * valid).to(
+        torch.uint8).contiguous()
+    dsel = torch.clamp(n_valid - (bank.k_max - 2), 0, 2).to(torch.int32)
+    ck.reset_launches()
+    _, bt2 = probes.bit_place(hard, state["bit_tail"], dsel, bank.k_max,
+                              ck.z_rows_for(fused.p))
+    sync()
+    counts = dict(ck.launches)
+    need_launched("placement probe", counts, ("bit_place",))
+    if not torch.equal(bt2, new_state["bit_tail"]):
+        fail(f"placement probe C={c}: "
+             f"{(bt2 != new_state['bit_tail']).sum().item()} bits of the "
+             f"carried tail differ from the fused step's")
+    say(f"placement probe C={c}: bit_place rebuilds the fused step's "
+        f"carried tail from its soft bits ({int(n_valid.min())}-"
+        f"{int(n_valid.max())} valid symbols); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase_ops_probe() -> dict:
+    """The elementwise probe: every operation once, against PyTorch."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp import probes
+    inputs = ops_inputs()
+    ck.reset_launches()
+    got = {op: probes.ops_probe(op, a, b) for op, (a, b) in inputs.items()}
+    sync()
+    counts = dict(ck.launches)
+    need_launched("elementwise probe", counts, ("ops_probe",))
+    rels = {}
+    for op, (a, b) in inputs.items():
+        ref = probes.ops_probe_plain(op, a, b).double()
+        rels[op] = ((got[op].double() - ref).abs()
+                    / ref.abs().clamp(min=1.0)).max().item()
+    bad = {op: r for op, r in rels.items()
+           if r > (0.0 if probes.OPS[op][2] else 1e-5)}
+    if bad:
+        fail(f"elementwise probe: {bad}")
+    say("elementwise probe: " + ", ".join(
+        f"{op} {'=' if r == 0.0 else format(r, '.1e')}"
+        for op, r in rels.items())
+        + " (= bit for bit, else the error over max(1, |reference|)); "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase_iir_probe(b: int) -> dict:
+    """The serial recursion inside one kernel against the same recursion
+    driven from the host, a subframe (60 samples) and a block's worth
+    (960) at b rows: what a launch-per-step form costs a sample."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp import probes
+    rng = np.random.default_rng(37)
+    a, x = iir_inputs(b, 960, rng)
+    ck.reset_launches()
+    y, m = probes.iir_recursion(a, x)
+    sync()
+    counts = dict(ck.launches)
+    need_launched("recursion probe", counts, ("iir_recursion",))
+    y_p, m_p = probes.iir_recursion_plain(a, x)
+    if not (torch.equal(y, y_p) and torch.equal(m, m_p)):
+        fail(f"recursion probe B={b}: {(y != y_p).sum().item()} of "
+             f"{y.numel()} samples differ from the host-driven recursion")
+    for n in (60, 960):
+        xn = x[:n].contiguous()
+        t_k = event_ms(lambda: probes.iir_recursion(a, xn), 5)
+        t_p = event_ms(lambda: probes.iir_recursion_plain(a, xn), 2)
+        say(f"recursion probe B={b}, {n} samples: in one kernel "
+            f"{t_k:.4f} ms ({1e3 * t_k / n:.3f} us a sample), driven from "
+            f"the host {t_p:.3f} ms ({1e3 * t_p / n:.1f} us a sample), "
+            f"equal outputs")
+    say(f"recursion probe: launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 def phase_chain(fs: float, c: int, n_blocks: int, seed: int,
                 kern: dict, nfft: int | None = None) -> dict:
     """bench.py chain_e2e_fused: FusedRx.step + sparse_hits over
@@ -1003,8 +1360,12 @@ def main(argv: list) -> int:
         ck.build()
         say(f"build: {time.time() - t0:.1f} s ({ck.build_info['path']})")
         for line in ck.build_info.get("log", "").splitlines():
-            if "Used" in line or "spill" in line:
-                say("  ptxas " + line.replace("ptxas info    :", "").strip())
+            entry = re.search(r"entry function '\S*?_cu_[0-9a-f]{8}\d+"
+                              r"(\w+?)E[vP]", line)
+            if entry:
+                say("  ptxas " + entry.group(1))
+            elif "Used" in line or "spill" in line:
+                say("    " + line.replace("ptxas info    :", "").strip())
     if "--profile" in argv:
         rest = argv[argv.index("--profile") + 1:]
         return main_profile(card, ROOT / (rest[0] if rest
@@ -1021,6 +1382,7 @@ def main(argv: list) -> int:
                          nfft=nfft_fleet)
     kern_big = phase_kernels(FS_BENCH, c_bench, seed=2, reps=3,
                              nfft=nfft_bench)
+    phase_kernels_extra(seed=6)
     say(f"[{time.time() - t_start:.0f} s] kernels checked")
     phase_decode_small()
     setup = fleet_setup(FS_FLEET, c_fleet, nfft_fleet, 2, seed=11)
@@ -1042,6 +1404,10 @@ def main(argv: list) -> int:
         counts_al, counts_x = phase_decode_fleet_aligned(c_fleet,
                                                          nfft_aligned)
     counts_ph = phase_phasor_probe(FS_FLEET, c_fleet, nfft_fleet)
+    counts_p1 = phase_pass1_probe(FS_FLEET, c_fleet, nfft_fleet)
+    counts_pl = phase_place_probe(FS_FLEET, c_fleet, nfft_fleet)
+    counts_op = phase_ops_probe()
+    counts_iir = phase_iir_probe(4 * c_fleet)
     say(f"[{time.time() - t_start:.0f} s] decodes done")
     chains = {
         "c1024": phase_chain(FS_FLEET, c_fleet, 10, 3, kern, nfft_fleet),
@@ -1070,7 +1436,9 @@ def main(argv: list) -> int:
         "fft2p": counts_fused, "band_synth": counts_fused,
         "fused_backhalf": counts_fused, "band_synth_y": counts_afc,
         "frame_scan_even": counts_afc, "band_extract_rows": counts_x,
-        "band_extract": counts_el, "band_synth_ph": counts_ph}
+        "band_extract": counts_el, "band_synth_ph": counts_ph,
+        "fft2p_pass1": counts_p1, "bit_place": counts_pl,
+        "ops_probe": counts_op, "iir_recursion": counts_iir}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         k1, k2 = kern[name], kern_big[name]
@@ -1105,7 +1473,9 @@ def main(argv: list) -> int:
             "decode_fleet_aligned_extract": counts_x,
             "decode_rtl_conv": counts_rtl["conv"],
             "decode_rtl_fft": counts_rtl["fft"],
-            "decode_element": counts_el, "phasor_prepass": counts_ph},
+            "decode_element": counts_el, "phasor_prepass": counts_ph,
+            "pass1_probe": counts_p1, "place_probe": counts_pl,
+            "ops_probe": counts_op, "iir_probe": counts_iir},
         "seconds": time.time() - t_start}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,53 @@ def test_classic_chain_kernels_match_plain_on_card(smoke, name):
 
 
 @pytest.mark.cuda
+def test_redesigned_kernels_at_the_other_geometries(smoke):
+    """fft2p (and its pass-1 probe) at nfft 2^14 and 2^18 with and
+    without splice and wrap rows, fused_backhalf at C=8 / 2.304 MHz with
+    0, half and all symbols valid: phase_kernels_extra exits on any
+    excess error."""
+    smoke.phase_kernels_extra(seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fft2p", "fft2p_pass1", "fused_backhalf"])
+def test_redesigned_kernels_match_plain_at_c8(smoke, name):
+    """The small fused geometry (C=8, 2.304 MHz, nfft 2^18)."""
+    res = smoke.phase_kernels(smoke.FS_SMALL, 8, seed=3, reps=2)
+    assert res[name]["max_abs_err"] <= res[name]["tol"]
+    assert res[name]["bound_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_pass1_probe_agrees_with_the_whole_kernel(smoke):
+    counts = smoke.phase_pass1_probe(smoke.FS_FLEET, 1024, None)
+    assert counts["fft2p_pass1"] == 1 and counts["fft2p"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bit_place", "ops_probe", "iir_recursion"])
+def test_probe_kernels_match_plain_at_c8(smoke, name):
+    """The three measurement instruments of csrc/probes.cu at the small
+    fused geometry: placement and recursion bit for bit, the elementwise
+    operations within their limits."""
+    res = smoke.phase_kernels(smoke.FS_SMALL, 8, seed=3, reps=2)
+    assert res[name]["max_abs_err"] <= res[name]["tol"]
+    assert res[name]["bound_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_placement_probe_rebuilds_the_fused_steps_tail(smoke):
+    assert smoke.phase_place_probe(smoke.FS_FLEET, 1024, None)[
+        "bit_place"] == 1
+
+
+@pytest.mark.cuda
+def test_elementwise_and_recursion_probes_on_card(smoke):
+    assert smoke.phase_ops_probe()["ops_probe"] == 12
+    assert smoke.phase_iir_probe(4096)["iir_recursion"] == 1
+
+
+@pytest.mark.cuda
 def test_classic_decode_on_card_equals_cpu(smoke):
     """The off-air fixture through the defaults (conv, AFC) and the fft
     frontend on the card: frames equal to the CPU run, crc_pass >= 16."""

@@ -17,20 +17,23 @@
 // the reference's tables duplicate the forward columns into the reversed
 // half, so its min(e_fwd, e_rev) is e_fwd.
 //
-// Bound by device memory: n bytes in, 8 bytes out per even position
-// (about 26 KB a carrier at n = 5266); the popcounts (about 150 per
-// position) are far below the integer rate.
+// Device memory and the scan's logic work bound it about equally: n
+// bytes in and 8 bytes out per even position (about 26 KB a carrier at
+// n = 5266), and about 194 logic operations and 19 population counts a
+// position (scan.cuh), which at the float32 rate take as long as the
+// bytes do.
+#include <string.h>
+
 #include "scan.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(256)
 frame_scan_kernel(const unsigned char* __restrict__ bits,
-                  const unsigned* __restrict__ scan_tab,
+                  const __grid_constant__ tt::ScanTab tab,
                   float* __restrict__ corr, int* __restrict__ err, int n,
                   int pe_n, int pc_n) {
   extern __shared__ unsigned z[];
-  __shared__ unsigned tab[SCAN_WORDS];
   const int c = blockIdx.x;
   const int n_data = (n + 31) >> 5;
   const int lane = threadIdx.x & 31;
@@ -38,8 +41,6 @@ frame_scan_kernel(const unsigned char* __restrict__ bits,
   const int n_warps = blockDim.x >> 5;
   const unsigned char* row = bits + (long long)c * n;
 
-  for (int i = threadIdx.x; i < SCAN_WORDS; i += blockDim.x)
-    tab[i] = scan_tab[i];
   for (int w = warp; w < n_data; w += n_warps) {
     const int pos = 32 * w + lane;
     const int bit = pos < n ? (row[pos] != 0) : 0;
@@ -61,12 +62,15 @@ frame_scan_kernel(const unsigned char* __restrict__ bits,
 
 }  // namespace
 
+// scan_tab: the SCAN_WORDS table words in host memory.
 extern "C" int tt_frame_scan_even(const void* bits, const void* scan_tab,
                                   void* corr, void* err, int n, int pe_n,
                                   int pc_n, int n_rows, void* stream) {
+  tt::ScanTab tab;
+  memcpy(tab.w, scan_tab, sizeof(tab.w));
   const int smem = (((n + 31) >> 5) + 9) * (int)sizeof(unsigned);
   frame_scan_kernel<<<n_rows, 256, smem, (cudaStream_t)stream>>>(
-      (const unsigned char*)bits, (const unsigned*)scan_tab, (float*)corr,
+      (const unsigned char*)bits, tab, (float*)corr,
       (int*)err, n, pe_n, pc_n);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,15 @@
 // uint32) holds 16 forward-CRC tap rows of 8 words over the 230-bit
 // frame window, the 8-word data-view mask, the two 22-bit training
 // sequences and the 16 bits of the all-zero message's CRC.
+//
+// The scan is integer work, and population counts run at a quarter of
+// the logic rate: a syndrome bit is the parity of the window under its
+// tap row, so the eight masked words are folded with exclusive-or first
+// and counted once (16 counts a position where the sum of eight counts
+// a row took 128), and the all-zero / all-one test of the data view is
+// a comparison of masked words, no count.  The table travels as a kernel
+// parameter (ScanTab), so its words are constant-bank operands of the
+// logic operations and occupy neither registers nor shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -19,42 +28,58 @@
 #define SCAN_TS1 136
 #define SCAN_TS2 137
 #define SCAN_C0 138
-#define SCAN_DATA_BITS 216
 
 namespace tt {
 
-// Verdicts of the frame window starting at bit o of z:
-//   *n_agree: best agreement count of z[o, o+22) with TS1 / TS2;
+struct ScanTab {
+  unsigned w[SCAN_WORDS];
+};
+
+// Verdicts of the frame window whose 230 bits start at bit sh (< 32) of
+// the nine words raw[0..8]:
+//   *n_agree: best agreement count of its first 22 bits with TS1 / TS2;
 //   return:   forward CRC-16 syndrome weight of the burst's data view,
 //             99 when the view is all zeros or all ones.
-// Reads words z[o/32 .. o/32 + 8].
-__device__ __forceinline__ int scan_window(const unsigned* z, int o,
-                                           const unsigned* tab,
-                                           int* n_agree) {
-  const int q = o >> 5;
-  const int sh = o & 31;
+__device__ __forceinline__ int scan_shifted(const unsigned (&raw)[9], int sh,
+                                            const ScanTab& tab,
+                                            int* n_agree) {
   unsigned w[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k)
-    w[k] = sh ? (z[q + k] >> sh) | (z[q + k + 1] << (32 - sh)) : z[q + k];
+    w[k] = __funnelshift_r(raw[k], raw[k + 1], sh);
   const unsigned s22 = w[0] & 0x3FFFFFu;
-  const int a1 = 22 - __popc(s22 ^ tab[SCAN_TS1]);
-  const int a2 = 22 - __popc(s22 ^ tab[SCAN_TS2]);
+  const int a1 = 22 - __popc(s22 ^ tab.w[SCAN_TS1]);
+  const int a2 = 22 - __popc(s22 ^ tab.w[SCAN_TS2]);
   *n_agree = a1 > a2 ? a1 : a2;
-  int ones = 0;
+  unsigned any = 0, missing = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) ones += __popc(w[k] & tab[SCAN_ONES + k]);
-  if (ones == 0 || ones == SCAN_DATA_BITS) return 99;
-  const unsigned c0 = tab[SCAN_C0];
-  int e = 0;
+  for (int k = 0; k < 8; ++k) {
+    const unsigned m = tab.w[SCAN_ONES + k];
+    any |= w[k] & m;
+    missing |= ~w[k] & m;
+  }
+  if (any == 0 || missing == 0) return 99;
+  unsigned par = 0;
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    int cnt = 0;
+    unsigned fold = 0;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) cnt += __popc(w[k] & tab[r * 8 + k]);
-    e += (cnt & 1) ^ ((c0 >> r) & 1);
+    for (int k = 0; k < 8; ++k) fold ^= w[k] & tab.w[r * 8 + k];
+    par |= (unsigned)(__popc(fold) & 1) << r;
   }
-  return e;
+  return __popc(par ^ (tab.w[SCAN_C0] & 0xFFFFu));
+}
+
+// The same for the window starting at bit o of z: reads words
+// z[o/32 .. o/32 + 8].
+__device__ __forceinline__ int scan_window(const unsigned* z, int o,
+                                           const ScanTab& tab,
+                                           int* n_agree) {
+  const int q = o >> 5;
+  unsigned raw[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) raw[k] = z[q + k];
+  return scan_shifted(raw, o & 31, tab, n_agree);
 }
 
 }  // namespace tt

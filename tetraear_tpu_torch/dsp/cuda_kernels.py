@@ -6,6 +6,8 @@ Each wrapper replaces one Pallas kernel of
 
   ``fft2p_planes_spliced``  csrc/fft2p.cu         fft2p_planes_spliced
                                                    (+ fft2p_planes, o2 = 0)
+  ``fft2p_pass1``           csrc/fft2p.cu         the pass-1 probe of
+                                                   perf/fft2p_stage_probe.py
   ``band_synth``            csrc/band_synth.cu    band_synth(phasor_drop=)
   ``band_synth_y``          csrc/band_synth.cu    band_synth (no phasor)
   ``band_synth_ph``         csrc/band_synth.cu    band_synth(y_out=False)
@@ -14,9 +16,12 @@ Each wrapper replaces one Pallas kernel of
   ``band_extract_rows``     csrc/band_extract.cu  band_extract_rows
   ``band_extract``          csrc/band_extract.cu  band_extract
 
-The first, second and fifth carry the fused receive path; the classic
+The first, third and sixth carry the fused receive path; the classic
 chain runs ``band_synth_y`` (or an extraction kernel) and
-``frame_scan_even``.
+``frame_scan_even``.  The three other measurement instruments
+(``bit_place``, ``ops_probe``, ``iir_recursion``: csrc/probes.cu) have
+their wrappers in ``dsp/probes.py`` and share this module's build,
+dispatch rule and launch counts.
 
 Dispatch rule: a wrapper given CPU tensors runs the plain PyTorch
 version of its function; given CUDA tensors it launches the kernel or
@@ -43,6 +48,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,9 +57,10 @@ from tetraear_tpu_torch.dsp import framescan
 
 TAILBITS = 1200
 
-launches = {"fft2p": 0, "band_synth": 0, "band_synth_y": 0,
+launches = {"fft2p": 0, "fft2p_pass1": 0, "band_synth": 0, "band_synth_y": 0,
             "band_synth_ph": 0, "fused_backhalf": 0, "frame_scan_even": 0,
-            "band_extract_rows": 0, "band_extract": 0}
+            "band_extract_rows": 0, "band_extract": 0, "bit_place": 0,
+            "ops_probe": 0, "iir_recursion": 0}
 
 
 def reset_launches() -> None:
@@ -66,14 +73,22 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("common.cuh", "scan.cuh", "fft2p.cu", "band_synth.cu",
-            "backhalf.cu", "frame_scan.cu", "band_extract.cu")
+_SOURCES = ("common.cuh", "scan.cuh", "place.cuh", "fft2p.cu",
+            "band_synth.cu", "backhalf.cu", "frame_scan.cu",
+            "band_extract.cu", "probes.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "tetraear_tpu_torch"
-# -fmad=false: no multiply-add contraction, so every float expression
-# rounds as the plain PyTorch version's separate ops do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false: no multiply-add contraction, so every float expression
+# rounds as the plain PyTorch version's separate ops do.  The sources
+# named here are held to a tolerance instead and keep contraction on.
+_FMAD_SOURCES = ("fft2p.cu",)
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS if name in _FMAD_SOURCES else (*NVCC_FLAGS,
+                                                     "-fmad=false")
 
 _lib = None
 build_info: dict = {}
@@ -95,9 +110,9 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
     for name in _SOURCES:
-        h.update(name.encode())
+        h.update(" ".join((name, *_flags(name))).encode())
         h.update((_CSRC / name).read_bytes())
     key = h.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -110,7 +125,8 @@ def build() -> ctypes.CDLL:
         units = [name for name in _SOURCES if name.endswith(".cu")]
         objs = [BUILD_DIR / f"{Path(name).stem}.{tag}.o" for name in units]
         procs = [subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)],
+            [_nvcc(), *_flags(name), "-c", "-o", str(obj),
+             str(_CSRC / name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name, obj in zip(units, objs)]
         outs = [proc.communicate()[0] for proc in procs]
@@ -131,16 +147,21 @@ def build() -> ctypes.CDLL:
             obj.unlink()
     lib = ctypes.CDLL(str(so))
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tt_fft2p.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.tt_fft2p.argtypes = [vp] * 8 + [cl] * 2 + [ci] * 6 + [vp]
+    lib.tt_fft2p_pass1.argtypes = [vp] * 6 + [cl] + [ci] * 5 + [vp]
     lib.tt_band_synth.argtypes = ([vp, cl, vp, ci, vp, vp, vp, vp, vp]
                                   + [ci] * 4 + [vp])
     lib.tt_fused_backhalf.argtypes = [vp] * 14 + [ci] * 6 + [vp]
     lib.tt_frame_scan_even.argtypes = [vp] * 4 + [ci] * 4 + [vp]
     lib.tt_band_extract_rows.argtypes = [vp, cl, vp, vp, ci, ci, vp]
     lib.tt_band_extract.argtypes = [vp, vp, vp, ci, ci, vp]
-    for fn in (lib.tt_fft2p, lib.tt_band_synth, lib.tt_fused_backhalf,
-               lib.tt_frame_scan_even, lib.tt_band_extract_rows,
-               lib.tt_band_extract):
+    lib.tt_bit_place.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    lib.tt_ops_probe.argtypes = [ci, vp, vp, vp, ci, ci, vp]
+    lib.tt_iir_recursion.argtypes = [vp] * 4 + [ci] * 2 + [vp]
+    for fn in (lib.tt_fft2p, lib.tt_fft2p_pass1, lib.tt_band_synth,
+               lib.tt_fused_backhalf, lib.tt_frame_scan_even,
+               lib.tt_band_extract_rows, lib.tt_band_extract,
+               lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)
     _lib = lib
@@ -220,6 +241,86 @@ def _log2_exact(n: int, what: str) -> int:
 # kernel 1: wideband FFT, four-step, spliced
 # ---------------------------------------------------------------------------
 
+class Fft2pPlan(NamedTuple):
+    """Geometry of the two-pass transform of la * lb points: pass 1 runs
+    la-point transforms on t1 adjacent columns a block, pass 2 lb-point
+    transforms on t2 adjacent rows; the scratch G between them is
+    (la / t2, lb, t2) complex.  Pass 2 runs as thread block clusters of
+    cl2 neighbouring tiles that store runs of t2 * cl2 bins.  The
+    four-step twiddle's phase splits at bit ``hbits``."""
+    la: int
+    lb: int
+    t1: int
+    t2: int
+    cl2: int
+    hbits: int
+
+
+def fft2p_plan(n1: int, n2: int) -> Fft2pPlan:
+    """The plan of the (n2, n1) window: tiles of at most 16384 points
+    (139 KB of shared memory with the padding), at most 16 wide; pass 2
+    in clusters (of at most 8 blocks) where its tile is under 8 wide,
+    so that its stores are runs of 32 bytes.
+
+    The paths use this one choice per (n1, n2).  The C entries take the
+    plan's fields as run-time geometry, the two passes' lengths exchanged
+    and clusters of 8 included, only so that ``dsp/tune_fft2p.py`` can
+    time other tilings against it; neither beat it on the H100."""
+    la, lb = n2, n1
+
+    def width(length, other):
+        return max(1, min(16, 16384 // length, other))
+
+    lgn = _log2_exact(la, "n2") + _log2_exact(lb, "n1")
+    t2 = width(lb, la)
+    return Fft2pPlan(la, lb, width(la, lb), t2,
+                     max(1, min(8 // t2, la // t2)), (lgn + 1) // 2)
+
+
+def fourstep_tables(nfft: int, hbits: int) -> tuple:
+    """(whi, wlo) float32 (., 2) tables, made in float64, whose product
+    whi[m >> hbits] * wlo[m & (2^hbits - 1)] is exp(-2 pi i m / nfft)."""
+    def table(k):
+        w = np.exp(-2j * np.pi * k / nfft)
+        return np.stack([w.real, w.imag], axis=1).astype(np.float32)
+    return (table(np.arange(nfft >> hbits, dtype=np.float64)
+                  * float(1 << hbits)),
+            table(np.arange(1 << hbits, dtype=np.float64)))
+
+
+def _fourstep_tables(nfft: int, hbits: int, dev: torch.device) -> tuple:
+    key = ("fourstep", nfft, hbits, str(dev))
+    if key not in _TW_CACHE:
+        _TW_CACHE[key] = tuple(torch.from_numpy(t).to(dev)
+                               for t in fourstep_tables(nfft, hbits))
+    return _TW_CACHE[key]
+
+
+def _fft2p_args(tail_p, x_p, n1, n2, wrap_k1) -> int:
+    """Shape and range checks of the two fft2p wrappers; returns o2."""
+    o2 = tail_p.shape[1] if tail_p.dim() == 3 else -1
+    _check(tail_p, "tail_p", (2, o2, n1), torch.float32)
+    _check(x_p, "x_p", (2, n2 - o2, n1), torch.float32)
+    if n1 % 128 or n2 % 128 or not 0 <= wrap_k1 <= n1:
+        raise ValueError(f"fft2p needs 128 | n1, n2 and wrap <= n1 "
+                         f"(got {n1}, {n2}, {wrap_k1})")
+    return o2
+
+
+def _fft2p_kernel_args(dev, n1, n2, plan) -> tuple:
+    """What the two C entries share: (scratch G, the two four-step
+    tables, the trailing geometry arguments)."""
+    if max(n1, n2) > 16384:
+        raise ValueError(f"fft2p kernel: n1, n2 <= 16384 (got {n1}, {n2})")
+    g = torch.empty((plan.la // plan.t2, plan.lb, plan.t2, 2),
+                    dtype=torch.float32, device=dev)
+    whi, wlo = _fourstep_tables(n1 * n2, plan.hbits, dev)
+    geom = (_log2_exact(plan.la, "la"), _log2_exact(plan.lb, "lb"),
+            _log2_exact(plan.t1, "t1"), _log2_exact(plan.t2, "t2"),
+            _log2_exact(plan.cl2, "cl2"), plan.hbits)
+    return g, whi, wlo, geom
+
+
 def fft2p_planes_spliced(tail_p: torch.Tensor, x_p: torch.Tensor, n1: int,
                          n2: int, wrap_k1: int = 0) -> torch.Tensor:
     """Forward nfft-point DFT (nfft = n1 n2) of the overlap-save window
@@ -233,32 +334,30 @@ def fft2p_planes_spliced(tail_p: torch.Tensor, x_p: torch.Tensor, n1: int,
     Replaces ``fft2p_planes_spliced`` / ``fft2p_planes``
     (tetraear_tpu/dsp/pallas_kernels.py), which run the four-step
     transform as bf16x3 MXU matmuls; the port runs float32 FFTs.
-    Bound: device memory, two read+write passes over 8 nfft bytes.
-    Design: csrc/fft2p.cu (pass 1 column FFTs with the splice and the
-    w^{i1 k2} twiddle, pass 2 row FFTs writing the natural-order planes
-    and the wrap rows)."""
-    o2 = tail_p.shape[1] if tail_p.dim() == 3 else -1
-    _check(tail_p, "tail_p", (2, o2, n1), torch.float32)
-    _check(x_p, "x_p", (2, n2 - o2, n1), torch.float32)
-    if n1 % 128 or n2 % 128 or not 0 <= wrap_k1 <= n1:
-        raise ValueError(f"fft2p needs 128 | n1, n2 and wrap <= n1 "
-                         f"(got {n1}, {n2}, {wrap_k1})")
+    Bound: device memory, two read+write passes over 8 nfft bytes; what
+    keeps a pass from that rate is shared-memory traffic and barriers
+    between butterfly stages, and runs shorter than a 32-byte sector on
+    the strided side of each pass.  Design (csrc/fft2p.cu): radix-16 and
+    radix-8 butterflies in registers with one to three exchanges through
+    a padded shared-memory tile, the first stage fed from device memory
+    and the last writing it; the four-step twiddle from two float32
+    tables (``fourstep_tables``); the scratch G interleaved and tiled so
+    that both passes move it in long runs; where pass 2's tile is too
+    narrow for 32-byte stores, a thread block cluster shares its last
+    stage through distributed shared memory (``fft2p_plan``)."""
+    o2 = _fft2p_args(tail_p, x_p, n1, n2, wrap_k1)
     if _route(tail_p, x_p) == "cpu":
         return fft2p_plain(tail_p, x_p, n1, n2, wrap_k1)
-    lg1 = _log2_exact(n1, "n1")
-    lg2 = _log2_exact(n2, "n2")
-    if lg1 > 14 or lg2 > 14:
-        raise ValueError(f"fft2p kernel: n1, n2 <= 16384 (got {n1}, {n2})")
+    plan = fft2p_plan(n1, n2)
     dev = x_p.device
+    g, whi, wlo, geom = _fft2p_kernel_args(dev, n1, n2, plan)
     lib = build()
-    cols = max(1, min(32, 16384 // n2))
-    rows = max(1, min(32, 16384 // n1))
-    g = torch.empty((2, n2, n1), dtype=torch.float32, device=dev)
     out = torch.empty((2, (n1 + wrap_k1) * n2 // 128, 128),
                       dtype=torch.float32, device=dev)
     _launch("fft2p", dev, lib.tt_fft2p, _ptr(tail_p), _ptr(x_p), _ptr(g),
-            _ptr(out), _ptr(_twiddles(n2, dev)), _ptr(_twiddles(n1, dev)),
-            n1, n2, o2, wrap_k1, cols, rows)
+            _ptr(out), _ptr(_twiddles(plan.la, dev)),
+            _ptr(_twiddles(plan.lb, dev)), _ptr(whi), _ptr(wlo), o2 * n1,
+            wrap_k1 * n2, *geom)
     return out
 
 
@@ -266,6 +365,59 @@ def fft2p_plain(tail_p, x_p, n1, n2, wrap_k1):
     """Plain version of fft2p_planes_spliced: torch.fft of the window."""
     win = torch.cat([tail_p, x_p], dim=1).reshape(2, n1 * n2)
     big = torch.fft.fft(torch.complex(win[0], win[1]))
+    ext = torch.cat([big, big[:wrap_k1 * n2]])
+    return torch.stack([ext.real, ext.imag]).reshape(2, -1, 128)
+
+
+def fft2p_pass1(tail_p: torch.Tensor, x_p: torch.Tensor, n1: int,
+                n2: int) -> torch.Tensor:
+    """Pass 1 of fft2p_planes_spliced alone: the transforms over the
+    window's columns times the four-step twiddle, as the scratch G that
+    pass 2 reads: (la / t2, lb, t2, 2) float32 with G[k2 // t2, i1,
+    k2 % t2] = w_nfft^(i1 k2) sum_i2 window[i1 + lb i2] w_la^(i2 k2)
+    (``fft2p_plan`` gives la, lb, t2).  It localises an error to one
+    pass and times the passes apart.
+
+    Replaces the private pass-1 ``pallas_call`` of
+    perf/fft2p_stage_probe.py.  Bound: device memory, 8 nfft bytes in
+    and out.  The launch is the first of csrc/fft2p.cu's two."""
+    _fft2p_args(tail_p, x_p, n1, n2, 0)
+    if _route(tail_p, x_p) == "cpu":
+        return fft2p_pass1_plain(tail_p, x_p, n1, n2)
+    plan = fft2p_plan(n1, n2)
+    dev = x_p.device
+    g, whi, wlo, geom = _fft2p_kernel_args(dev, n1, n2, plan)
+    lib = build()
+    _launch("fft2p_pass1", dev, lib.tt_fft2p_pass1, _ptr(tail_p), _ptr(x_p),
+            _ptr(g), _ptr(_twiddles(plan.la, dev)), _ptr(whi), _ptr(wlo),
+            tail_p.shape[1] * n1, *geom[:4], plan.hbits)
+    return g
+
+
+def fft2p_pass1_plain(tail_p, x_p, n1, n2):
+    """Plain version of fft2p_pass1: torch.fft over the columns, the
+    twiddle as the product of the two float32 tables, G's tiling."""
+    plan = fft2p_plan(n1, n2)
+    la, lb, t2 = plan.la, plan.lb, plan.t2
+    dev = x_p.device
+    win = torch.cat([tail_p, x_p], dim=1).reshape(2, la, lb)
+    cols = torch.fft.fft(torch.complex(win[0], win[1]), dim=0)   # (k2, i1)
+    whi, wlo = (torch.view_as_complex(t)
+                for t in _fourstep_tables(la * lb, plan.hbits, dev))
+    m = (torch.arange(la, device=dev)[:, None]
+         * torch.arange(lb, device=dev)[None, :]) % (la * lb)
+    g = cols * (whi[m >> plan.hbits] * wlo[m & ((1 << plan.hbits) - 1)])
+    g = g.reshape(la // t2, t2, lb).transpose(1, 2).contiguous()
+    return torch.view_as_real(g)
+
+
+def fft2p_pass2_plain(g, n1, n2, wrap_k1):
+    """Plain pass 2 over fft2p_pass1's G: torch.fft over i1, bins
+    k2 + la k1 in natural order, the wrap rows appended."""
+    plan = fft2p_plan(n1, n2)
+    rows = torch.view_as_complex(g).transpose(1, 2).reshape(plan.la,
+                                                            plan.lb)
+    big = torch.fft.fft(rows, dim=1).t().reshape(-1)             # (k1, k2)
     ext = torch.cat([big, big[:wrap_k1 * n2]])
     return torch.stack([ext.real, ext.imag]).reshape(2, -1, 128)
 
@@ -459,16 +611,24 @@ def z_rows_for(p: int) -> int:
 _SCAN_CACHE: dict = {}
 
 
-def _scan_tables(dev: torch.device, words: bool):
-    key = (str(dev), words)
+def _scan_taps(dev: torch.device) -> tuple:
+    """framescan.scan_taps on ``dev`` (the plain versions' tables)."""
+    key = str(dev)
     if key not in _SCAN_CACHE:
-        if words:
-            _SCAN_CACHE[key] = torch.from_numpy(
-                framescan.scan_words().view(np.int32)).to(dev)
-        else:
-            _SCAN_CACHE[key] = tuple(torch.from_numpy(t).to(dev)
-                                     for t in framescan.scan_taps())
+        _SCAN_CACHE[key] = tuple(torch.from_numpy(t).to(dev)
+                                 for t in framescan.scan_taps())
     return _SCAN_CACHE[key]
+
+
+def _scan_words() -> ctypes.c_void_p:
+    """framescan.scan_words in host memory: the C entries copy the table
+    into their kernel's parameters."""
+    if "words" not in _SCAN_CACHE:
+        words = np.ascontiguousarray(framescan.scan_words(), np.uint32)
+        if words.shape != (139,):
+            raise RuntimeError(f"scan table of {words.shape} words")
+        _SCAN_CACHE["words"] = words
+    return ctypes.c_void_p(_SCAN_CACHE["words"].ctypes.data)
 
 
 def fused_backhalf(y: torch.Tensor, bt: torch.Tensor, rr: torch.Tensor,
@@ -489,11 +649,15 @@ def fused_backhalf(y: torch.Tensor, bt: torch.Tensor, rr: torch.Tensor,
     0/1 the last valid symbol (0 when there is none).
 
     Replaces ``fused_backhalf`` (tetraear_tpu/dsp/pallas_kernels.py).
-    Bound: device memory (64 KB in, ~40 KB out per carrier).  Design:
-    csrc/backhalf.cu, one block per carrier with the corrected band in
-    shared memory, indexed interpolation, bit-packed popcount scan
-    (csrc/scan.cuh, whose numpy reference is
-    framescan.host_scan_rows_even)."""
+    Bound: device memory (64 KB in, ~40 KB out per carrier), then the
+    scan's integer work.  Design (csrc/backhalf.cu): one block of 256
+    threads per carrier, three or more to an SM, so one carrier's loads
+    run under another's scan; a thread reads its symbol's two 16-byte
+    sample groups straight from device memory and interpolates once;
+    soft bits leave transposed through shared memory as whole rows; the
+    bit row is packed by ballot and scanned four positions a thread with
+    one population count per syndrome bit (csrc/scan.cuh, whose numpy
+    reference is framescan.host_scan_rows_even)."""
     c = y.shape[0] if y.dim() == 4 else -1
     p = y.shape[3] if y.dim() == 4 else -1
     tr = bt.shape[1] if bt.dim() == 3 else -1
@@ -531,7 +695,7 @@ def fused_backhalf(y: torch.Tensor, bt: torch.Tensor, rr: torch.Tensor,
     misc = torch.empty((c, 1, 128), dtype=torch.float32, device=dev)
     _launch("fused_backhalf", dev, lib.tt_fused_backhalf, _ptr(y), _ptr(bt),
             _ptr(rr), _ptr(rc), _ptr(sc), _ptr(bsel), _ptr(dsel),
-            _ptr(_scan_tables(dev, True)), _ptr(corr), _ptr(err),
+            _scan_words(), _ptr(corr), _ptr(err),
             _ptr(soft), _ptr(bt2), _ptr(last), _ptr(misc), p, int(drop),
             int(k_max), tr, z_rows, c)
     return corr, err, soft, bt2, last, misc
@@ -593,7 +757,7 @@ def fused_backhalf_plain(y, bt, rr, rc, sc, bsel, dsel, drop, k_max,
     z[:, TAILBITS:TAILBITS + 2 * ns:2] = msb
     z[:, TAILBITS + 1:TAILBITS + 2 * ns:2] = lsb
 
-    taps_k, c0, zs = _scan_tables(dev, False)
+    taps_k, c0, zs = _scan_taps(dev)
     m = z_rows - 2
     out = torch.nn.functional.conv1d(z[:, None, :], taps_k, stride=2)
     out = out[:, :, :64 * m]                                 # (C, 19, 64M)
@@ -638,8 +802,9 @@ def frame_scan_even(bits: torch.Tensor) -> tuple:
     Replaces ``frame_scan_even`` (tetraear_tpu/dsp/pallas_kernels.py).
     Bound: device memory (n bytes in, 8 bytes per even position out).
     Design: csrc/frame_scan.cu packs each row into 32-bit words in
-    shared memory and evaluates csrc/scan.cuh per position; no (C, R,
-    128) padding, selector tables or reshape passes."""
+    shared memory and evaluates csrc/scan.cuh per position (the table
+    in the kernel's parameters); no (C, R, 128) padding, selector tables
+    or reshape passes."""
     c = bits.shape[0] if bits.dim() == 2 else -1
     n = bits.shape[1] if bits.dim() == 2 else -1
     _check(bits, "bits", (c, n), torch.uint8)
@@ -655,7 +820,7 @@ def frame_scan_even(bits: torch.Tensor) -> tuple:
     corr = torch.empty((c, pe_n), dtype=torch.float32, device=dev)
     err = torch.empty((c, pc_n), dtype=torch.int32, device=dev)
     _launch("frame_scan_even", dev, lib.tt_frame_scan_even, _ptr(bits),
-            _ptr(_scan_tables(dev, True)), _ptr(corr), _ptr(err), n, pe_n,
+            _scan_words(), _ptr(corr), _ptr(err), n, pe_n,
             pc_n, c)
     return corr, err
 
@@ -667,7 +832,7 @@ def frame_scan_even_plain(bits: torch.Tensor) -> tuple:
     dev = bits.device
     pe_n, pc_n = framescan.plane_dims(n)
     pc_n = max(pc_n, 0)
-    taps_k, c0, zs = _scan_tables(dev, False)
+    taps_k, c0, zs = _scan_taps(dev)
     z = torch.nn.functional.pad(bits.to(torch.float32),
                                 (0, framescan.CRC_SPAN))
     out = torch.nn.functional.conv1d(z[:, None, :], taps_k, stride=2)
