@@ -15,11 +15,13 @@ port's receive paths on the card in phases, one line per result:
      geometries, with the error, the tolerance, the times of kernel,
      plain version and (where one exists) the single PyTorch call that
      computes the same function, and the bound: the least time the card
-     could take, from the bytes moved and the operations done; then the
-     two redesigned kernels at the other geometries the paths use:
-     fft2p at nfft 2^14 and 2^18 with and without splice and wrap rows,
-     fused_backhalf at C=8 / 2.304 MHz with 0, half and all symbols
-     valid;
+     could take, from the bytes moved and the operations done (integer
+     work at the card's integer instruction rates, which a register-only loop
+     confirms); then the redesigned kernels at the other geometries the
+     paths use: fft2p at nfft 2^14 and 2^18 with and without splice and
+     wrap rows, fused_backhalf at C=8 / 2.304 MHz with 0, half and all
+     symbols valid, band_synth's three forms at n_band 512, 2048 and
+     16384, frame_scan_even at the edge lengths of its planes;
   4. decode small: Pipeline.run_offline on a golden 8-carrier capture at
      2.304 MHz on the card and on the CPU (fused path);
   5. decode fleet: Pipeline.run_offline at C=1024 / 36.864 MHz on the
@@ -96,11 +98,18 @@ FS_BENCH = 294.912e6
 RTL_OFFSETS = (12_500.0, -287_500.0)
 FIXTURE = ROOT / "tests" / "fixtures" / "offair_2carrier.cs16"
 
-# published peaks of one H100 SXM (dense): device memory rate, and the
-# float32 rate outside the tensor cores, which also prices the integer
-# and popcount work of the scan (the data sheet gives no rate for those)
+# published peaks of one H100 SXM (dense): device memory rate and the
+# float32 rate outside the tensor cores.  Integer work has its own rates:
+# on compute capability 9.0 an SM executes 64 32-bit logic operations a
+# clock, and 16 population counts or int-to-float conversions (CUDA C
+# programming manual, arithmetic instruction throughput), on 132 SMs at the
+# SM clock that nvidia-smi reports as clocks.max.sm (read in main).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+N_SMS = 132
+LOGIC_PER_CLK_SM = 64.0
+QUARTER_PER_CLK_SM = 16.0
+SM_CLOCK_HZ = 1.98e9
 
 DEV = "cuda"            # "cpu" in the rehearsal
 REHEARSE = False
@@ -157,15 +166,27 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(in_out_bytes: int, ops: float) -> dict:
+def bound(in_out_bytes: int, ops: float, logic: float = 0.0,
+          quarter: float = 0.0) -> dict:
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the operations at the
-    float32 rate, whichever is larger."""
+    output written once at the memory rate, or the operations, whichever
+    is larger.  ``ops`` are float32 operations at the float32 rate,
+    ``logic`` 32-bit integer logic operations and ``quarter`` population
+    counts and conversions, each at its own instruction rate; the three run in
+    different pipes, so the slowest of them is what the operations need.
+    ``fp32_rate_ms`` keeps the earlier yardstick beside it: every
+    operation at the float32 rate."""
     t_bytes = in_out_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    per_ms = N_SMS * SM_CLOCK_HZ * 1e-3
+    t_ops = max(ops / FP32_OPS_PER_S * 1e3,
+                logic / (LOGIC_PER_CLK_SM * per_ms),
+                quarter / (QUARTER_PER_CLK_SM * per_ms))
+    total = ops + logic + quarter
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(in_out_bytes), "ops": float(ops)}
+            "bytes": int(in_out_bytes), "ops": float(total),
+            "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "fp32_rate_ms": max(t_bytes, total / FP32_OPS_PER_S * 1e3)}
 
 
 def scan_rows(c: int, n: int, rng):
@@ -346,7 +367,7 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         "library_ms": None,
         **bound(nbytes(*[a for a in args3 if isinstance(a, torch.Tensor)],
                        *out_k),
-                c * (SCAN_OPS * n_pos + 40.0 * nb))}
+                c * 40.0 * nb, *(c * n_pos * v for v in scan_ops(8)))}
     bt_probe = state["bit_tail"]
     del out_k, out_p, y_p, args3, g
 
@@ -369,11 +390,14 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         "ms": event_ms(lambda: ck.frame_scan_even(rows), reps),
         "plain_ms": event_ms(lambda: ck.frame_scan_even_plain(rows), reps),
         "library_ms": None,
-        **bound(nbytes(rows, corr_k, err_k),
-                c * SCAN_OPS * corr_k.shape[1])}
+        **bound(nbytes(rows, corr_k, err_k), 0.0,
+                *(c * corr_k.shape[1] * v for v in scan_ops(16)))}
     del rows, corr_k, corr_p, err_k, err_p
 
-    # band extraction: random in-range starts, wrap rows included
+    # band extraction: random in-range starts, wrap rows included; at
+    # C=1024 a launch is short beside the spread of a 10-launch mean, so
+    # kernel and gather are timed over 100 launches there
+    xreps = 100 if c <= 1024 else reps
     p = nb // 128
     r_rows = planes.shape[1]
     rs = rng.integers(0, r_rows - p + 1, c)
@@ -390,10 +414,10 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         fail(f"band_extract_rows C={c}: the single-call gather differs")
     res["band_extract_rows"] = {
         "max_abs_err": 0.0, "tol": 0.0,
-        "ms": event_ms(lambda: ck.band_extract_rows(planes, rs, p), reps),
+        "ms": event_ms(lambda: ck.band_extract_rows(planes, rs, p), xreps),
         "plain_ms": event_ms(
             lambda: ck.band_extract_rows_plain(planes, rs, p), reps),
-        "library_ms": event_ms(lambda: planes[pl_idx, row_idx], reps),
+        "library_ms": event_ms(lambda: planes[pl_idx, row_idx], xreps),
         **bound(2 * nbytes(got) + nbytes(rs), 0.0)}
     del got, want, row_idx
 
@@ -409,10 +433,10 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
     idx = st.long()[:, None] + torch.arange(nb, device=dev)[None, :]
     res["band_extract"] = {
         "max_abs_err": 0.0, "tol": 0.0,
-        "ms": event_ms(lambda: ck.band_extract(x_ext, st, nb), reps),
+        "ms": event_ms(lambda: ck.band_extract(x_ext, st, nb), xreps),
         "plain_ms": event_ms(
             lambda: ck.band_extract_plain(x_ext, st, nb), reps),
-        "library_ms": event_ms(lambda: x_ext[idx], reps),
+        "library_ms": event_ms(lambda: x_ext[idx], xreps),
         **bound(2 * nbytes(got) + nbytes(st), 0.0)}
     del got, want, idx, x_ext
 
@@ -437,7 +461,7 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         "ms": event_ms(lambda: probes.bit_place(*args4), reps),
         "plain_ms": event_ms(lambda: probes.bit_place_plain(*args4), reps),
         "library_ms": None,
-        **bound(nbytes(hard, bt_probe, dsel, z_k, bt2_k),
+        **bound(nbytes(hard, bt_probe, dsel, z_k, bt2_k), 0.0,
                 c * (4.0 * ns + 6.0 * 128 * bt_probe.shape[1]))}
     del hard, z_k, z_p, bt2_k, bt2_p, bt_probe, state
 
@@ -467,7 +491,9 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
             f"(tol {r['tol']:.3e}), kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library call {lib}, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
-            f"({r['bytes']} bytes, {r['ops']:.3e} ops)")
+            f"({r['bytes']} bytes {r['bytes_ms']:.4f} ms, {r['ops']:.3e} "
+            f"ops {r['ops_ms']:.4f} ms; every operation at the float32 "
+            f"rate: {r['fp32_rate_ms']:.4f} ms)")
     r = res["fft2p"]
     say(f"kernel fft2p C={c}, unspliced window (o2 = 0): kernel "
         f"{r['unspliced_ms']:.4f} ms, plain {r['unspliced_plain_ms']:.4f} "
@@ -551,11 +577,142 @@ def iir_inputs(b: int, n: int, rng) -> tuple:
     return torch.from_numpy(a).to(DEV), torch.from_numpy(x).to(DEV)
 
 
+def check_band_synth_sizes(rng) -> None:
+    """band_synth's three forms at n_band 512, 2048 and 16384 (and the
+    smallest, 128): five carriers with row_start and d_shift at their
+    extremes, drop 0 and a multiple of P, each form within the full
+    kernel's tolerances of the plain version and bit-equal to it."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp.channelizer import synth_tables
+    dev = torch.device(DEV)
+    worst = {}
+    for n_band in (128, 512, 2048, 16384):
+        p = n_band // 128
+        n_rolls, r_rows = 7, 3 * p + 11
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        planes = to_dev(rng.standard_normal((2, r_rows, 128))
+                        .astype(np.float32))
+        h1 = to_dev(rng.standard_normal((2, n_rolls, p, 128))
+                    .astype(np.float32))
+        rs = to_dev(np.array([0, r_rows - p, 5, 1, r_rows - p - 1],
+                             np.int32))
+        ds = to_dev(np.array([0, n_rolls - 1, 3, n_rolls - 1, 0], np.int32))
+        tabs = tuple(to_dev(t) for t in synth_tables(n_band))
+        for drop in (0, 2 * p) if p % 4 == 0 else (None,):
+            args = (planes, h1, rs, ds, *tabs, p)
+            y_p, ph_p = ck.band_synth_plain(*args, drop)
+            y_only = ck.band_synth_y(*args)
+            err_y, rms_y = max_err(y_only, y_p)
+            errs = [err_y / rms_y]
+            ok = err_y <= 1e-5 * rms_y
+            if drop is not None:
+                y_k, ph_k = ck.band_synth(*args, drop)
+                ph_only = ck.band_synth_ph(*args, drop)
+                power = y_p.double().pow(2).sum(dim=(1, 2, 3)).max().item()
+                err_ph, _ = max_err(ph_k, ph_p)
+                errs.append(err_ph / power)
+                ok = (ok and err_ph <= 2e-5 * power
+                      and (DEV == "cpu" or (torch.equal(y_only, y_k)
+                                            and torch.equal(ph_only, ph_k))))
+            if not ok:
+                fail(f"band_synth n_band {n_band}, drop {drop}: y err / RMS, "
+                     f"phasor err / band power {errs} (tol 1e-5, 2e-5), or "
+                     f"the forms are not bit-equal")
+            worst[n_band] = max(worst.get(n_band, 0.0), errs[0])
+    say("kernel band_synth x3 at n_band 128 (y only), 512, 2048, 16384: "
+        "row_start and d_shift at their extremes, drop 0 and 2 P, within "
+        "1e-5 of y's RMS and 2e-5 of the band power, the forms bit-equal; "
+        "worst y err / RMS " + ", ".join(f"{k}: {v:.2e}"
+                                         for k, v in worst.items()))
+
+
+def check_frame_scan_edges(rng) -> None:
+    """frame_scan_even at the edge lengths of its planes (22: one sync
+    position, no CRC position; 229 to 233 around the first CRC position;
+    odd lengths; 1426; 5266, the fleet row) on 37 rows: all zeros, all
+    ones, a golden frame at the first and at the last CRC position,
+    random bits; both planes bit-identical to the plain version."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp import framescan
+    from tetraear_tpu_torch.ref import golden
+    dev = torch.device(DEV)
+    frame = golden.build_stream([golden.sds_text_payload("EDGE")] * 2,
+                                seed=9)
+    lengths = (22, 23, 229, 230, 231, 233, 1426, 5266, 5267)
+    for n in lengths:
+        rows = rng.integers(0, 2, (37, n)).astype(np.uint8)
+        rows[0], rows[1] = 0, 1
+        _, pc_n = framescan.plane_dims(n)
+        if pc_n > 0:
+            last = 2 * (pc_n - 1)
+            seg = frame[:n]
+            rows[2, :len(seg)] = seg
+            rows[3, last:] = frame[:n - last]
+        rows_d = torch.from_numpy(rows).to(dev)
+        corr_k, err_k = ck.frame_scan_even(rows_d)
+        corr_p, err_p = ck.frame_scan_even_plain(rows_d)
+        if not (corr_k.shape == corr_p.shape and err_k.shape == err_p.shape
+                and torch.equal(corr_k, corr_p)
+                and torch.equal(err_k, err_p)):
+            fail(f"frame_scan_even n={n}: planes {tuple(corr_k.shape)} "
+                 f"{tuple(err_k.shape)} differ from the plain version")
+        if n >= 510 and not (int(err_k[2, 0]) <= 2
+                             and int(err_k[3, pc_n - 1]) <= 2
+                             and int(err_k[0].min()) == 99
+                             and int(err_k[1].min()) == 99):
+            fail(f"frame_scan_even n={n}: planted frames or degenerate "
+                 f"rows not seen")
+    say(f"kernel frame_scan_even at n = {', '.join(map(str, lengths))}: 37 "
+        f"rows (zeros, ones, a frame at the first and the last position, "
+        f"random) bit-identical to the plain version")
+
+
+def phase_int_rate() -> dict:
+    """The card's integer instruction rates from a register-only loop, beside
+    the figures the bounds use."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp import probes
+    dev = torch.device(DEV)
+    small = torch.empty(1024, dtype=torch.int32, device=dev)
+    for kind in probes.INT_RATE_KINDS:
+        got = probes.int_rate(kind, 5, small).cpu()
+        if not torch.equal(got, probes.int_rate_plain(kind, 5, 1024)):
+            fail(f"int_rate {kind}: differs from the plain version")
+    n, iters = (1024, 8) if DEV == "cpu" else (N_SMS * 2048 * 4, 4096)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    ck.reset_launches()
+    rates = {}
+    for kind in probes.INT_RATE_KINDS:
+        ms = event_ms(lambda: probes.int_rate(kind, iters, out), 3)
+        rates[kind] = 8.0 * iters * n / (ms * 1e-3)
+    sync()
+    counts = dict(ck.launches)
+    need_launched("integer rates", counts, ("int_rate",))
+    per_s = N_SMS * SM_CLOCK_HZ
+    say(f"integer rates: three-input logic {rates['logic'] / 1e12:.2f} T/s "
+        f"and three-input additions {rates['add'] / 1e12:.2f} T/s (the "
+        f"bounds use {LOGIC_PER_CLK_SM * per_s / 1e12:.2f}: 64 a clock an "
+        f"SM, {N_SMS} SMs, {SM_CLOCK_HZ / 1e6:.0f} MHz), population counts "
+        f"{rates['popc'] / 1e12:.2f} T/s each with an exclusive-or (the "
+        f"bounds use {QUARTER_PER_CLK_SM * per_s / 1e12:.2f}: 16 a clock)")
+    return {"logic_per_s": rates["logic"], "add_per_s": rates["add"],
+            "popc_per_s": rates["popc"],
+            "sm_clock_hz": SM_CLOCK_HZ,
+            "bound_logic_per_s": LOGIC_PER_CLK_SM * per_s,
+            "bound_quarter_per_s": QUARTER_PER_CLK_SM * per_s}
+
+
 def phase_kernels_extra(seed: int) -> None:
-    """The two redesigned kernels at the other geometries the paths
-    use: fft2p at nfft 2^14 (128 x 128) and 2^18 (512 x 512) with and
+    """The redesigned kernels at the other geometries the paths use:
+    fft2p at nfft 2^14 (128 x 128) and 2^18 (512 x 512) with and
     without splice and wrap rows; fused_backhalf at C=8 / 2.304 MHz with
-    no, half and all symbols valid."""
+    no, half and all symbols valid; band_synth's three forms at the
+    other band lengths; frame_scan_even at its planes' edge lengths."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
@@ -608,16 +765,33 @@ def phase_kernels_extra(seed: int) -> None:
                      f"differs by {e:.3e}")
     say(f"kernel fused_backhalf C=8 at {FS_SMALL / 1e6:g} MHz: 0, "
         f"{ns // 2} and {ns} valid symbols equal to the plain version")
+    check_band_synth_sizes(rng)
+    check_frame_scan_edges(rng)
 
 
-# operations of one even position of the scan (csrc/scan.cuh), a
-# three-input logic operation (and-xor, and-or) counted as one: 8 funnel
-# shifts; the sync test (mask, 2 xor, 2 population counts, 2 subtractions,
-# max); the all-zero / all-one test of the data view (2 a word, compare
-# and combine); 16 syndrome rows folded over 8 words (and-xor), each with
-# one population count and its bit put in place (mask-shift, or); the
-# syndrome's distance (xor, population count).  213, 19 of them counts.
-SCAN_OPS = 8 + 8 + (8 * 2 + 3) + 16 * 8 + 16 * 3 + 2.0
+# Integer operations of the scan (csrc/scan.cuh) a position, as (logic,
+# quarter-rate) counts, a three-input logic operation counted as one and
+# population counts and the int-to-float conversion at a quarter of its
+# rate.  Every position: the sync test (funnel shift, mask, 2 xor, min,
+# subtraction; 2 counts), the verdict (2 compares and their or, xor,
+# select; 1 count), the conversion and its multiply, two stores.  A
+# position evaluated in full: 9 loads, 8 funnel shifts, the data view's
+# ones (8 and, 8 add; 8 counts), 16 syndrome rows folded over 8 words
+# (and-xor) each with a count and its bit put in place, the three words of
+# leaving and entering bits.  A position slid from the last: the step
+# matrix (shift, 2 tests, 2 xor) and 8 bits each a test, an xor and an
+# add.  A run of k positions is one in full and k - 1 slid.
+SCAN_EACH = (15.0, 4.0)
+SCAN_FULL = (8 + 9 + 16 + 128 + 16 * 2 + 9 + 7.0, 8 + 16.0)
+SCAN_SLIDE = (5 + 8 * 3.0, 0.0)
+
+
+def scan_ops(k: int) -> tuple:
+    """(logic, quarter-rate) operations a position in runs of k."""
+    return tuple(e + (f + (k - 1) * sl) / k
+                 for e, f, sl in zip(SCAN_EACH, SCAN_FULL, SCAN_SLIDE))
+
+
 # operations of one sample of one row of the serial recursion
 # (csrc/probes.cu): the shift pair, ten multiplies each with a saturating
 # subtraction (widen, subtract, two clamps), the output's shift and sign
@@ -1327,7 +1501,7 @@ def main_profile(card: str, out_dir: Path) -> int:
 
 
 def main(argv: list) -> int:
-    global DEV, REHEARSE
+    global DEV, REHEARSE, SM_CLOCK_HZ
     if not (ROOT / "tetraear_tpu_torch" / "dsp" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a tetraear checkout "
               "(tetraear_tpu_torch/ not found)", file=sys.stderr)
@@ -1349,9 +1523,16 @@ def main(argv: list) -> int:
             timeout=60)
         card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
             else "nvidia-smi: " + smi.stderr.strip()
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()
+        if clk and clk[0].strip().isdigit():
+            SM_CLOCK_HZ = float(clk[0]) * 1e6
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; SM clock "
+        f"{SM_CLOCK_HZ / 1e6:.0f} MHz (clocks.max.sm)")
     t_start = time.time()
 
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
@@ -1378,6 +1559,7 @@ def main(argv: list) -> int:
     nfft_bench = 2 ** 21 if REHEARSE else None
     nfft_aligned = 2 ** 18 if REHEARSE else None
 
+    int_rates = phase_int_rate()
     kern = phase_kernels(FS_FLEET, c_fleet, seed=1, reps=10,
                          nfft=nfft_fleet)
     kern_big = phase_kernels(FS_BENCH, c_bench, seed=2, reps=3,
@@ -1451,6 +1633,8 @@ def main(argv: list) -> int:
             "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
             "bound_bytes": k1["bytes"], "bound_ops": k1["ops"],
+            "bound_fp32_rate_ms": k1["fp32_rate_ms"],
+            "bound_fp32_rate_ms_c10240": k2["fp32_rate_ms"],
             "shape": "C=1024 fs=36.864MHz",
             "max_abs_err_c10240": k2["max_abs_err"],
             "ms_c10240": k2["ms"], "plain_ms_c10240": k2["plain_ms"],
@@ -1466,6 +1650,7 @@ def main(argv: list) -> int:
     say(card)
     say(json.dumps({
         "kernels": kernels, "chain": chains, "card": card,
+        "int_rates": int_rates,
         "launches_by_run": {
             "decode_fleet_fused": counts_fused,
             "decode_fleet_afc": counts_afc,

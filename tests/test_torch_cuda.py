@@ -54,9 +54,61 @@ def test_classic_chain_kernels_match_plain_on_card(smoke, name):
 def test_redesigned_kernels_at_the_other_geometries(smoke):
     """fft2p (and its pass-1 probe) at nfft 2^14 and 2^18 with and
     without splice and wrap rows, fused_backhalf at C=8 / 2.304 MHz with
-    0, half and all symbols valid: phase_kernels_extra exits on any
-    excess error."""
+    0, half and all symbols valid, band_synth's three forms at n_band
+    128 to 16384 and frame_scan_even at its edge lengths:
+    phase_kernels_extra exits on any excess error."""
     smoke.phase_kernels_extra(seed=6)
+
+
+@pytest.mark.cuda
+def test_band_synth_forms_at_every_band_length(smoke):
+    """n_band 128 (y only), 512, 2048 and 16384 with row_start and
+    d_shift at their extremes, drop 0 and 2 P: within 1e-5 of y's RMS and
+    2e-5 of the band power of the plain version, the forms bit-equal."""
+    import numpy as np
+    smoke.check_band_synth_sizes(np.random.default_rng(41))
+
+
+@pytest.mark.cuda
+def test_frame_scan_edge_lengths_on_card(smoke):
+    """n = 22, 23, 229 to 233, 1426, 5266, 5267 on 37 rows (zeros, ones,
+    a frame at the first and the last position, random): bit-identical."""
+    import numpy as np
+    smoke.check_frame_scan_edges(np.random.default_rng(43))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 133])
+def test_frame_scan_row_counts_and_long_rows_on_card(smoke, c):
+    """Row counts that fill no whole wave of blocks, and a row long
+    enough for several segments of positions (n = 20001)."""
+    import numpy as np
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    rng = np.random.default_rng(c)
+    for n in (5266, 20001):
+        rows = torch.from_numpy(
+            rng.integers(0, 2, (c, n)).astype(np.uint8)).cuda()
+        got = ck.frame_scan_even(rows)
+        want = ck.frame_scan_even_plain(rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_frame_scan_rejects_misaligned_storage(smoke):
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    rows = torch.zeros(4 * 100 + 1, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError):
+        ck.frame_scan_even(rows[1:].view(4, 100))
+
+
+@pytest.mark.cuda
+def test_integer_rates_on_card(smoke):
+    """The register-only loop equals its plain version and reads rates
+    of the order the bounds assume (within a factor of two)."""
+    r = smoke.phase_int_rate()
+    assert 0.5 < r["logic_per_s"] / r["bound_logic_per_s"] < 2.0
+    assert 0.5 < r["add_per_s"] / r["bound_logic_per_s"] < 2.0
+    assert 0.5 < r["popc_per_s"] / r["bound_quarter_per_s"] < 2.0
 
 
 @pytest.mark.cuda

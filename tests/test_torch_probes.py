@@ -198,3 +198,31 @@ def test_probes_count_no_launch_on_the_cpu():
     assert {k: ck.launches[k] for k in ("bit_place", "ops_probe",
                                         "iir_recursion")} == {
         "bit_place": 0, "ops_probe": 0, "iir_recursion": 0}
+
+
+@pytest.mark.parametrize("kind", probes.INT_RATE_KINDS)
+def test_int_rate_plain_equals_python_integers(kind):
+    """The register-only rate loop's plain version against the same
+    rounds in Python integers (the yardstick kernel of chip_smoke.py's
+    integer bound; it has no TPU counterpart)."""
+    n, iters, mask, m32 = 256, 3, probes.INT_RATE_MASK, 0xFFFFFFFF
+    out = probes.int_rate(kind, iters, torch.empty(n, dtype=torch.int32))
+    for tid in (0, 1, 77, 255):
+        r = [((tid + 1) * 2654435761 + 40503 * i) & m32 for i in range(8)]
+        for _ in range(iters):
+            for i in range(8):
+                nxt = r[(i + 1) & 7]
+                r[i] = {"logic": (r[i] & mask) ^ nxt,
+                        "popc": bin(r[i]).count("1") ^ nxt,
+                        "add": (r[i] + mask + nxt) & m32}[kind]
+        acc = 0
+        for v in r:
+            acc ^= v
+        assert int(out[tid]) & m32 == acc
+
+
+def test_int_rate_rejects_other_kinds_and_sizes():
+    with pytest.raises(ValueError):
+        probes.int_rate("mul", 1, torch.empty(256, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        probes.int_rate("logic", 1, torch.empty(100, dtype=torch.int32))

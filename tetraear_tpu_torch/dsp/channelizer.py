@@ -64,6 +64,23 @@ def choose_decim(fs: float) -> int:
     return best
 
 
+def synth_tables(n_band: int) -> tuple:
+    """(m1c (2P, 2P), m2re, m2im (128, 128), twre, twim (128, P)) float32:
+    the Cooley-Tukey split n_band = P * 128 (i = l + 128 r, k = s + P t)
+    of the inverse n_band-point DFT scaled by 1 / n_band, which the plain
+    version of ``cuda_kernels.band_synth`` evaluates as three matmuls."""
+    pp = n_band // 128
+    rv = np.arange(pp)
+    m1 = np.exp(2j * np.pi * np.outer(rv, rv) / pp)
+    m1c = np.block([[m1.real, m1.imag],
+                    [-m1.imag, m1.real]]).astype(np.float32)   # (2P, 2P)
+    lv = np.arange(128)
+    m2 = np.exp(2j * np.pi * np.outer(lv, lv) / 128)
+    tw = np.exp(2j * np.pi * np.outer(lv, rv) / n_band) / n_band  # (l, s)
+    return (m1c, m2.real.astype(np.float32), m2.imag.astype(np.float32),
+            tw.real.astype(np.float32), tw.imag.astype(np.float32))
+
+
 def choose_nfft(fs: float) -> int:
     """Smallest power of two covering ~0.1 s of input."""
     return 2 ** int(math.ceil(math.log2(max(fs * 0.1, 1024.0))))
@@ -235,19 +252,8 @@ class FFTChannelizer:
             h1g = h1t.reshape(h1t.shape[0], pp, 128)
             self.h1_planes = np.stack(
                 [h1g.real, h1g.imag]).astype(np.float32)  # (2, D, P, 128)
-            rv = np.arange(pp)
-            m1 = np.exp(2j * np.pi * np.outer(rv, rv) / pp)
-            self.m1c = np.block(
-                [[m1.real, m1.imag],
-                 [-m1.imag, m1.real]]).astype(np.float32)  # (2P, 2P)
-            lv = np.arange(128)
-            m2 = np.exp(2j * np.pi * np.outer(lv, lv) / 128)
-            self.m2re = m2.real.astype(np.float32)
-            self.m2im = m2.imag.astype(np.float32)
-            tw = (np.exp(2j * np.pi * np.outer(lv, rv) / self.n_band)
-                  / self.n_band)                          # (128 l, P s)
-            self.twre = tw.real.astype(np.float32)
-            self.twim = tw.imag.astype(np.float32)
+            (self.m1c, self.m2re, self.m2im, self.twre,
+             self.twim) = synth_tables(self.n_band)
 
         # per-block phase-correction step (k_c * block_len) mod nfft as
         # FLOAT32, mirroring the reference.  Float32 holds every integer

@@ -22,9 +22,9 @@
 // exist because Mosaic cannot shuffle lanes; here the same layout work
 // is indexed loads and bit packing.
 //
-// Bound by device memory: 64 KB of samples in per carrier, ~40 KB of
-// verdicts and soft bits out; then by the scan's integer work.  What the
-// design does about it:
+// Bound by device memory (64 KB of samples in per carrier, ~40 KB of
+// verdicts and soft bits out) and, about as much, by the scan's integer
+// work at the integer instruction rate.  What the design does about it:
 //   * the samples are never staged: the four taps of symbol i are the
 //     16-byte groups drop/4 - 1 + i and the next of each plane (one
 //     symbol per group, every sample used once), so a thread reads its
@@ -40,9 +40,11 @@
 //   * the carried tail is read coalesced and packed by warp ballot, the
 //     symbol bits from the staged decisions, 16 symbols a word
 //     (place.cuh, which the placement probe of probes.cu runs alone);
-//   * a thread scans four neighbouring even positions from one set of
-//     nine window words and writes 16 bytes of corr and of err; the scan
-//     itself counts 19 populations a position (scan.cuh);
+//   * the scan is bound by the integer instruction rate, not by bytes: a
+//     thread takes a run of 8 neighbouring even positions, evaluates the
+//     first in full and slides through the rest (scan.cuh: about 45
+//     logic instructions and 3 population counts a step where the full
+//     form takes about 210), and writes corr and err 16 bytes at a time;
 //   * last, bt2 and misc leave as 16-byte vectors.
 // Every float expression keeps the reference's order of operations
 // (contraction off), so decisions match the plain version bit for bit.
@@ -50,6 +52,13 @@
 
 #include "place.cuh"
 #include "scan.cuh"
+
+// positions a thread slides through: 64 | npos makes 8 or 16 the choices;
+// at 8 the 2688 positions of an 8192-point band are 336 runs, which keep
+// every warp of the block busy where 16 leave a third of them idle (the
+// step is a chain of dependent operations, so warps, not run length,
+// hide its latency)
+#define BACKHALF_K 8
 
 namespace {
 
@@ -216,25 +225,24 @@ fused_backhalf_kernel(const float* __restrict__ y,
   tt::place_symbols(hard, ns, nw, z);
   __syncthreads();
 
-  // 5. even-position sync + CRC scan, four positions a thread
+  // 5. even-position sync + CRC scan, a run of BACKHALF_K positions a
+  // thread (64 | npos): the first in full, the rest by the sliding step
   const int npos = 64 * (z_rows - 2);
   float* corrc = corr + (long long)cidx * npos;
   int* errc = err + (long long)cidx * npos;
-  for (int pe = 4 * threadIdx.x; pe < npos; pe += 4 * blockDim.x) {
-    const int q = pe >> 4;
-    unsigned raw[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) raw[k] = z[q + k];
+  for (int pe = BACKHALF_K * threadIdx.x; pe < npos;
+       pe += BACKHALF_K * blockDim.x) {
     float cv[4];
     int ev[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      int n_agree;
-      ev[a] = tt::scan_shifted(raw, (2 * (pe + a)) & 31, tab, &n_agree);
-      cv[a] = (float)n_agree * (1.0f / 22.0f);
-    }
-    *(float4*)(corrc + pe) = make_float4(cv[0], cv[1], cv[2], cv[3]);
-    *(int4*)(errc + pe) = make_int4(ev[0], ev[1], ev[2], ev[3]);
+    tt::scan_run<BACKHALF_K>(z, 2 * pe, tab, [&](int t, int n_agree, int e) {
+      cv[t & 3] = (float)n_agree * (1.0f / 22.0f);
+      ev[t & 3] = e;
+      if ((t & 3) == 3) {
+        *(float4*)(corrc + pe + t - 3) =
+            make_float4(cv[0], cv[1], cv[2], cv[3]);
+        *(int4*)(errc + pe + t - 3) = make_int4(ev[0], ev[1], ev[2], ev[3]);
+      }
+    });
   }
 
   // 6. next carried tail bits

@@ -154,6 +154,45 @@ iir_recursion_kernel(const int* __restrict__ a, const int* __restrict__ x,
   for (int k = 0; k < 10; ++k) m_out[r * 10 + k] = m[k];
 }
 
+// The card's integer instruction rates, for the yardstick that prices the
+// scan: each thread runs iters rounds over eight registers, a round
+// being eight three-input logic operations (kind 0: r = (r & mask) ^
+// next), eight population counts each followed by one exclusive-or
+// (kind 1) or eight three-input additions (kind 2: r = r + mask + next);
+// no memory is touched until the last store.
+__global__ void __launch_bounds__(256)
+int_rate_kernel(int kind, int iters, unsigned mask,
+                unsigned* __restrict__ out) {
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = (tid + 1u) * 2654435761u + 40503u * i;
+  if (kind == 0) {
+#pragma unroll 4
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r[i] = (r[i] & mask) ^ r[(i + 1) & 7];
+    }
+  } else if (kind == 1) {
+#pragma unroll 4
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        r[i] = (unsigned)__popc(r[i]) ^ r[(i + 1) & 7];
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r[i] = r[i] + mask + r[(i + 1) & 7];
+    }
+  }
+  unsigned acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc ^= r[i];
+  out[tid] = acc;
+}
+
 }  // namespace
 
 extern "C" int tt_bit_place(const void* hard, const void* bt,
@@ -181,5 +220,13 @@ extern "C" int tt_iir_recursion(const void* a, const void* x, void* y,
   iir_recursion_kernel<<<(n_rows + 127) / 128, 128, 0,
                          (cudaStream_t)stream>>>(
       (const int*)a, (const int*)x, (int*)y, (int*)m_out, n, n_rows);
+  return (int)cudaGetLastError();
+}
+
+// n_threads a multiple of 256
+extern "C" int tt_int_rate(int kind, int iters, unsigned mask, void* out,
+                           int n_threads, void* stream) {
+  int_rate_kernel<<<n_threads / 256, 256, 0, (cudaStream_t)stream>>>(
+      kind, iters, mask, (unsigned*)out);
   return (int)cudaGetLastError();
 }

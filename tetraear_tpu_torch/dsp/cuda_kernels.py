@@ -18,8 +18,8 @@ Each wrapper replaces one Pallas kernel of
 
 The first, third and sixth carry the fused receive path; the classic
 chain runs ``band_synth_y`` (or an extraction kernel) and
-``frame_scan_even``.  The three other measurement instruments
-(``bit_place``, ``ops_probe``, ``iir_recursion``: csrc/probes.cu) have
+``frame_scan_even``.  The other measurement instruments (``bit_place``,
+``ops_probe``, ``iir_recursion``, ``int_rate``: csrc/probes.cu) have
 their wrappers in ``dsp/probes.py`` and share this module's build,
 dispatch rule and launch counts.
 
@@ -60,7 +60,7 @@ TAILBITS = 1200
 launches = {"fft2p": 0, "fft2p_pass1": 0, "band_synth": 0, "band_synth_y": 0,
             "band_synth_ph": 0, "fused_backhalf": 0, "frame_scan_even": 0,
             "band_extract_rows": 0, "band_extract": 0, "bit_place": 0,
-            "ops_probe": 0, "iir_recursion": 0}
+            "ops_probe": 0, "iir_recursion": 0, "int_rate": 0}
 
 
 def reset_launches() -> None:
@@ -73,7 +73,7 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("common.cuh", "scan.cuh", "place.cuh", "fft2p.cu",
+_SOURCES = ("common.cuh", "radix.cuh", "scan.cuh", "place.cuh", "fft2p.cu",
             "band_synth.cu", "backhalf.cu", "frame_scan.cu",
             "band_extract.cu", "probes.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -83,7 +83,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -fmad=false: no multiply-add contraction, so every float expression
 # rounds as the plain PyTorch version's separate ops do.  The sources
 # named here are held to a tolerance instead and keep contraction on.
-_FMAD_SOURCES = ("fft2p.cu",)
+_FMAD_SOURCES = ("fft2p.cu", "band_synth.cu")
 
 
 def _flags(name: str) -> tuple:
@@ -158,10 +158,12 @@ def build() -> ctypes.CDLL:
     lib.tt_bit_place.argtypes = [vp] * 5 + [ci] * 5 + [vp]
     lib.tt_ops_probe.argtypes = [ci, vp, vp, vp, ci, ci, vp]
     lib.tt_iir_recursion.argtypes = [vp] * 4 + [ci] * 2 + [vp]
+    lib.tt_int_rate.argtypes = [ci, ci, ctypes.c_uint, vp, ci, vp]
     for fn in (lib.tt_fft2p, lib.tt_fft2p_pass1, lib.tt_band_synth,
                lib.tt_fused_backhalf, lib.tt_frame_scan_even,
                lib.tt_band_extract_rows, lib.tt_band_extract,
-               lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion):
+               lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion,
+               lib.tt_int_rate):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)
     _lib = lib
@@ -451,8 +453,9 @@ def _band_synth_launch(name, mode, planes, h1_planes, row_starts, d_shift,
     """Launch csrc/band_synth.cu in ``mode`` (0: y and phasor, 1: y
     only, 2: phasor only); returns (y or None, ph or None)."""
     lg = _log2_exact(128 * p, "n_band")
-    if lg > 14:
-        raise ValueError(f"band_synth kernel: n_band <= 16384 (got {128 * p})")
+    if not 7 <= lg <= 14:
+        raise ValueError(f"band_synth kernel: 128 <= n_band <= 16384 "
+                         f"(got {128 * p})")
     dev = planes.device
     lib = build()
     y = (torch.empty((c, 2, 128, p), dtype=torch.float32, device=dev)
@@ -487,9 +490,13 @@ def band_synth(planes: torch.Tensor, h1_planes: torch.Tensor,
     Replaces ``band_synth(..., phasor_drop=drop)``
     (tetraear_tpu/dsp/pallas_kernels.py).  Bound: device memory (64 KB
     in and out per carrier; the rolled filter table stays in L2).
-    Design: csrc/band_synth.cu computes the transform as one float32
-    radix-2 FFT per carrier in shared memory; the Cooley-Tukey tables
-    define it for the plain version only."""
+    Design: csrc/band_synth.cu runs the transform as 2 to 4 radix-8 /
+    radix-16 stages in registers (``band_plan``), the first fed from
+    device memory with the filter product, the last scaling, summing the
+    phasor and storing y, with a padded shared-memory tile for the
+    exchanges between stages only; ``band_synth_staged`` is that order of
+    steps in plain torch.  The Cooley-Tukey tables define the transform
+    for the plain version only."""
     c, p, n_rolls, r_rows = _band_synth_args(
         planes, h1_planes, row_starts, d_shift, m1c, m2re, m2im, twre,
         twim, rows_per_band)
@@ -559,6 +566,76 @@ def band_synth_ph(planes: torch.Tensor, h1_planes: torch.Tensor,
                               phasor_drop)[1]
 
 
+def band_plan(n_band: int) -> tuple:
+    """log2 of the radix of each stage of the kernel's n_band-point
+    transform, first stage first: radix-8 stages, then radix-16 ones
+    (csrc/radix.cuh ``make_plan``)."""
+    lgn = _log2_exact(n_band, "n_band")
+    a = 0
+    while (lgn - 3 * a) % 4:
+        a += 1
+    return (3,) * a + (4,) * ((lgn - 3 * a) // 4)
+
+
+def band_synth_staged(planes, h1_planes, row_starts, d_shift, p,
+                      phasor_drop):
+    """The kernel's own order of steps in plain torch (complex64): the
+    filter product with re and im exchanged (the inverse transform is the
+    forward one on exchanged data), ``band_plan``'s stages in place,
+    decimation in frequency, each followed by its twiddles from the
+    float32 table; the last stage's outputs go to the bins that its tile
+    positions' digits spell (the digit reversal), are exchanged back and
+    scaled by 1 / n_band; the phasor sums each bin's power under the
+    weight of k & 3.  Returns (y (C, 2, 128, P), ph (C, 1, 128) or None
+    when ``phasor_drop`` is None).  A check of the design on the CPU: no
+    path calls it."""
+    c = row_starts.shape[0]
+    dev = planes.device
+    n = 128 * p
+    plan = band_plan(n)
+    lgn = sum(plan)
+    idx = (row_starts.long()[:, None] * 128
+           + torch.arange(n, device=dev)[None, :])              # (C, n)
+    flat = planes.reshape(2, -1)
+    nre, nim = flat[0][idx], flat[1][idx]
+    h = h1_planes[:, d_shift.long()].reshape(2, c, n)
+    tile = torch.complex(nre * h[1] + nim * h[0], nre * h[0] - nim * h[1])
+    half = torch.view_as_complex(_twiddles(n, dev))
+    circle = torch.cat([half, -half])                   # exp(-2 pi i t / n)
+    lgns = lgn
+    for lgr in plan[:-1]:
+        r, sub = 1 << lgr, 1 << (lgns - lgr)
+        v = torch.fft.fft(tile.reshape(c, -1, r, sub), dim=2)
+        j = torch.arange(sub, device=dev)[None, :]
+        m = torch.arange(r, device=dev)[:, None]
+        tile = (v * circle[(j * m) << (lgn - lgns)]).reshape(c, n)
+        lgns -= lgr
+    r = 1 << plan[-1]
+    v = torch.fft.fft(tile.reshape(c, n // r, r), dim=2)
+    base = torch.arange(n // r, device=dev) * r          # tile positions
+    k_low = torch.zeros_like(base)
+    cum = 0
+    for lgr in plan[:-1]:
+        digit = (base >> (lgn - cum - lgr)) & ((1 << lgr) - 1)
+        k_low = k_low + (digit << cum)
+        cum += lgr
+    k = k_low[:, None] + (torch.arange(r, device=dev)[None, :] << cum)
+    out = torch.empty((c, n), dtype=tile.dtype, device=dev)
+    out[:, k.reshape(-1)] = v.reshape(c, n)
+    scale = 1.0 / n
+    yre, yim = out.imag * scale, out.real * scale
+    y = torch.stack([yre, yim], dim=1).reshape(c, 2, 128, p).contiguous()
+    if phasor_drop is None:
+        return y, None
+    kk = torch.arange(n, device=dev)
+    pw = (yre * yre + yim * yim) * (kk >= phasor_drop)
+    k4 = kk & 3
+    ph = torch.zeros((c, 1, 128), dtype=torch.float32, device=dev)
+    ph[:, 0, 0] = (pw * ((k4 == 0).float() - (k4 == 2).float())).sum(dim=1)
+    ph[:, 0, 1] = (pw * ((k4 == 3).float() - (k4 == 1).float())).sum(dim=1)
+    return y, ph
+
+
 def band_synth_plain(planes, h1_planes, row_starts, d_shift, m1c, m2re,
                      m2im, twre, twim, p, phasor_drop):
     """Plain version of band_synth: the reference's three-matmul
@@ -625,7 +702,7 @@ def _scan_words() -> ctypes.c_void_p:
     into their kernel's parameters."""
     if "words" not in _SCAN_CACHE:
         words = np.ascontiguousarray(framescan.scan_words(), np.uint32)
-        if words.shape != (139,):
+        if words.shape != (149,):
             raise RuntimeError(f"scan table of {words.shape} words")
         _SCAN_CACHE["words"] = words
     return ctypes.c_void_p(_SCAN_CACHE["words"].ctypes.data)
@@ -655,9 +732,10 @@ def fused_backhalf(y: torch.Tensor, bt: torch.Tensor, rr: torch.Tensor,
     run under another's scan; a thread reads its symbol's two 16-byte
     sample groups straight from device memory and interpolates once;
     soft bits leave transposed through shared memory as whole rows; the
-    bit row is packed by ballot and scanned four positions a thread with
-    one population count per syndrome bit (csrc/scan.cuh, whose numpy
-    reference is framescan.host_scan_rows_even)."""
+    bit row is packed by ballot and scanned in runs of 8 positions a
+    thread, the first in full and the rest by the sliding step
+    (csrc/scan.cuh, whose numpy references are
+    framescan.host_scan_rows_even and host_scan_rows_even_sliding)."""
     c = y.shape[0] if y.dim() == 4 else -1
     p = y.shape[3] if y.dim() == 4 else -1
     tr = bt.shape[1] if bt.dim() == 3 else -1
@@ -800,10 +878,15 @@ def frame_scan_even(bits: torch.Tensor) -> tuple:
     either form maps back to n_agree exactly.
 
     Replaces ``frame_scan_even`` (tetraear_tpu/dsp/pallas_kernels.py).
-    Bound: device memory (n bytes in, 8 bytes per even position out).
+    Bound: the integer instruction rate (a position evaluated in full is
+    about 210 integer instructions against 2 bits in and 8 bytes out).
     Design: csrc/frame_scan.cu packs each row into 32-bit words in
-    shared memory and evaluates csrc/scan.cuh per position (the table
-    in the kernel's parameters); no (C, R, 128) padding, selector tables
+    shared memory from 16-byte loads, and a thread takes a run of 16
+    neighbouring positions through csrc/scan.cuh: the first in full, the
+    rest by the sliding step (the CRC taps are a polynomial remainder,
+    ``framescan.scan_slide``; ``framescan.host_scan_rows_even_sliding``
+    is that order of steps in numpy); the verdicts leave through shared
+    memory as 16-byte vectors.  No (C, R, 128) padding, selector tables
     or reshape passes."""
     c = bits.shape[0] if bits.dim() == 2 else -1
     n = bits.shape[1] if bits.dim() == 2 else -1
@@ -813,6 +896,8 @@ def frame_scan_even(bits: torch.Tensor) -> tuple:
                          f"{framescan.SYNC_LEN} <= n <= 1000000)")
     if _route(bits) == "cpu":
         return frame_scan_even_plain(bits)
+    if bits.data_ptr() % 16:
+        raise ValueError("bits: storage must be 16-byte aligned")
     pe_n, pc_n = framescan.plane_dims(n)
     pc_n = max(pc_n, 0)
     dev = bits.device

@@ -289,10 +289,11 @@ def frame_scan_packed_mm(bits: torch.Tensor) -> dict:
 
 
 def scan_words() -> np.ndarray:
-    """The same scan as bit masks for the CUDA kernel, (139,) uint32:
+    """The same scan as bit masks for the CUDA kernel, (149,) uint32:
     [16 rows x 8 words of CRC taps | 8 words of the data-view mask |
-    TS1 word | TS2 word | c0 bits word].  Bit b of word k of a row is
-    tap 32k + b of the 230-bit window."""
+    TS1 word | TS2 word | c0 bits word | the 10 words of
+    ``scan_slide_words``].  Bit b of word k of a row is tap 32k + b of
+    the 230-bit window."""
     def words(row):
         bits = np.zeros(256, np.uint64)
         bits[:len(row)] = (np.asarray(row) != 0)
@@ -304,7 +305,159 @@ def scan_words() -> np.ndarray:
     out.append(words(_PATTERNS[0])[:1])
     out.append(words(_PATTERNS[1])[:1])
     out.append(words(_CRC_C0)[:1])
+    out.append(scan_slide_words())
     return np.concatenate(out)
+
+
+# ---------------------------------------------------------------------------
+# The sliding form of the scan.  The 16 forward-CRC tap rows are a
+# polynomial remainder: over the data view's 216 bits (two runs of the
+# window, offsets 0-107 and 122-229) the tap column of data bit i is one
+# fixed 16 x 16 matrix A over GF(2) times the column of bit i + 2.  So the
+# parity word of the window at bit o + 2 follows from that at o: take out
+# the four bits that leave the runs, multiply by A, put in the four that
+# enter.  A is a shift of the word by two places plus one constant for
+# each of the two bits shifted out.  Everything is derived here from
+# _CRC_KERNEL and checked; nothing is typed in.
+# ---------------------------------------------------------------------------
+
+SLIDE_LEAVE = (0, 1, 122, 123)       # window offsets leaving the data view
+SLIDE_ENTER = (108, 109, 230, 231)   # offsets (of the old window) entering
+SLIDE_RUN = 16                       # positions a thread slides through
+
+
+def _gf2_solve(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The 16 x 16 matrix a over GF(2) with a @ x = y (x, y 16 x m,
+    x of full rank); raises if there is none."""
+    n = x.shape[0]
+    rows = np.concatenate([x.T, y.T], axis=1).astype(np.uint8)
+    r = 0
+    for c in range(n):
+        piv = next((i for i in range(r, len(rows)) if rows[i, c]), None)
+        if piv is None:
+            raise RuntimeError("CRC tap columns do not span GF(2)^16")
+        rows[[r, piv]] = rows[[piv, r]]
+        hit = np.flatnonzero(rows[:, c])
+        hit = hit[hit != r]
+        rows[hit] ^= rows[r]
+        r += 1
+    if rows[n:].any():
+        raise RuntimeError("CRC tap columns follow no fixed recurrence")
+    return rows[:n, n:].T.copy()
+
+
+def _bits_word(col: np.ndarray) -> int:
+    """Bit r of the word is element r of the 0/1 column."""
+    return int((col.astype(np.uint64) << np.arange(len(col),
+                                                    dtype=np.uint64)).sum())
+
+
+def scan_slide() -> dict:
+    """Constants of the sliding scan, derived from the tap table:
+    ``a`` the 16 x 16 step matrix, ``leave`` the four columns (as 16-bit
+    words, bit r = syndrome row r) of the bits at SLIDE_LEAVE already
+    multiplied by A, ``enter`` those of the bits at SLIDE_ENTER in the new
+    window, ``g`` the two words that A adds for bits 0 and 1 of the old
+    parity word: A x = (x >> 2) ^ (x & 1 ? g[0] : 0) ^ (x & 2 ? g[1] : 0)."""
+    t = (_CRC_KERNEL[:16, 0, :][:, _DATA_OFFSETS] != 0).astype(np.uint8)
+    a = _gf2_solve(t[:, 2:], t[:, :-2])
+    shift = np.zeros((16, 16), np.uint8)
+    shift[np.arange(14), np.arange(2, 16)] = 1
+    rest = a ^ shift
+    if rest[:, 2:].any():
+        raise RuntimeError("the step matrix is not a shift by two plus "
+                           "two columns")
+    where = {int(off): i for i, off in enumerate(_DATA_OFFSETS)}
+    leave = [_bits_word((a @ t[:, where[off]]) & 1) for off in SLIDE_LEAVE]
+    enter = [_bits_word(t[:, where[off - 2]]) for off in SLIDE_ENTER]
+    return {"a": a, "leave": leave, "enter": enter,
+            "g": [_bits_word(rest[:, 0]), _bits_word(rest[:, 1])]}
+
+
+def scan_slide_words() -> np.ndarray:
+    """(10,) uint32 appended to ``scan_words``: [4 leaving columns | 4
+    entering columns | 2 step constants] of ``scan_slide``."""
+    s = scan_slide()
+    return np.array(s["leave"] + s["enter"] + s["g"], np.uint32)
+
+
+def host_scan_rows_even_sliding(bits: np.ndarray,
+                                run: int = SLIDE_RUN) -> tuple:
+    """The kernels' sliding scan (csrc/scan.cuh) step by step in numpy
+    integers, in the kernel's own order: the row packed into 32-bit words
+    with a zero pad, runs of ``run`` neighbouring even positions, the
+    first of a run evaluated in full from the tap masks, every next one
+    from the last (the shift by two with its two constants, leaving
+    columns, entering columns; the ones count of the data view with the
+    same eight bits; the sync word read anew).  Returns (corr, crc_err)
+    as ``frame_scan_even`` does, corr as n_agree * float32(1/22)."""
+    bits = np.asarray(bits, np.uint8)
+    c, n = bits.shape
+    pe_n, pc_n = plane_dims(n)
+    pc_n = max(pc_n, 0)
+    tab = scan_words()
+    taps = tab[:128].reshape(16, 8).astype(np.uint64)
+    ones_mask = tab[128:136].astype(np.uint64)
+    ts = tab[136:138].astype(np.uint64)
+    c0 = int(tab[138]) & 0xFFFF
+    leave, enter, g = tab[139:143], tab[143:147], tab[147:149]
+    n_words = (n + 31) // 32 + 10
+    padded = np.zeros((c, 32 * n_words), np.uint64)
+    padded[:, :n] = bits & 1
+    z = (padded.reshape(c, n_words, 32)
+         << np.arange(32, dtype=np.uint64)).sum(axis=2)       # (C, W)
+
+    def field(o, width):
+        """bits [o, o + width) of every row, width <= 32."""
+        q, sh = o >> 5, np.uint64(o & 31)
+        both = z[:, q] | (z[:, q + 1] << np.uint64(32))
+        return (both >> sh) & np.uint64((1 << width) - 1)
+
+    def popcount(v):
+        """ones of each 32-bit value"""
+        v = v.astype(np.uint64)
+        v = v - ((v >> np.uint64(1)) & np.uint64(0x55555555))
+        v = ((v & np.uint64(0x33333333))
+             + ((v >> np.uint64(2)) & np.uint64(0x33333333)))
+        v = (v + (v >> np.uint64(4))) & np.uint64(0x0F0F0F0F)
+        return (((v * np.uint64(0x01010101)) & np.uint64(0xFFFFFFFF))
+                >> np.uint64(24)).astype(np.int64)
+
+    corr = np.zeros((c, pe_n), np.float32)
+    err = np.zeros((c, pc_n), np.int32)
+    inv22 = np.float32(1.0) / np.float32(SYNC_LEN)
+    for pe0 in range(0, pe_n, run):
+        par = np.zeros(c, np.int64)
+        ones = np.zeros(c, np.int64)
+        for step in range(min(run, pe_n - pe0)):
+            pe = pe0 + step
+            o = 2 * pe
+            if step == 0:
+                w = np.stack([field(o + 32 * k, 32) for k in range(8)], 1)
+                par = sum((popcount((w & taps[r][None, :]))
+                           .sum(axis=1) & 1) << r for r in range(16))
+                ones = popcount(w & ones_mask[None, :]).sum(axis=1)
+            else:
+                old = o - 2
+                par = ((par >> 2) ^ (par & 1) * int(g[0])
+                       ^ ((par >> 1) & 1) * int(g[1]))
+                for off, col in zip(SLIDE_LEAVE, leave):
+                    bit = field(old + off, 1).astype(np.int64)
+                    par ^= bit * int(col)
+                    ones -= bit
+                for off, col in zip(SLIDE_ENTER, enter):
+                    bit = field(old + off, 1).astype(np.int64)
+                    par ^= bit * int(col)
+                    ones += bit
+            s22 = field(o, SYNC_LEN)
+            agree = SYNC_LEN - np.minimum(popcount(s22 ^ ts[0]),
+                                          popcount(s22 ^ ts[1]))
+            corr[:, pe] = agree.astype(np.float32) * inv22
+            if pe < pc_n:
+                e = popcount((par ^ c0).astype(np.uint64))
+                deg = (ones == 0) | (ones == DATA_BITS)
+                err[:, pe] = np.where(deg, 99, e)
+    return corr, err
 
 
 # ---------------------------------------------------------------------------

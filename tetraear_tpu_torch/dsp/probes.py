@@ -1,4 +1,4 @@
-"""Three measurement instruments on the card, each a hand-written CUDA
+"""Measurement instruments on the card, each a hand-written CUDA
 kernel (csrc/probes.cu) with a plain PyTorch version:
 
   ``bit_place``      the fused back half's bit placement alone
@@ -11,6 +11,11 @@ kernel (csrc/probes.cu) with a plain PyTorch version:
   ``iir_recursion``  a serial sample recursion inside one kernel against
                      the same recursion driven from the host step by step
                      (perf/scan_overhead_probe.py)
+  ``int_rate``       a register-only loop of 32-bit logic operations,
+                     additions or population counts: the card's integer
+                     instruction rates,
+                     which price the frame scan's bound (no TPU
+                     counterpart; chip_smoke.py's yardstick)
 
 No decode path calls them: ``chip_smoke.py`` drives each, holds it
 against its plain version and times both.  Build, dispatch rule (CPU
@@ -247,3 +252,69 @@ def iir_recursion_plain(a, x):
     return (torch.stack(ys).to(torch.int32) if ys
             else torch.zeros((0, b), dtype=torch.int32, device=a.device),
             m.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the integer instruction rates (the yardstick of the scan's bound)
+# ---------------------------------------------------------------------------
+
+INT_RATE_MASK = 0x5DEECE66
+INT_RATE_KINDS = ("logic", "popc", "add")
+
+
+def int_rate(kind: str, iters: int, out: torch.Tensor) -> torch.Tensor:
+    """Run ``iters`` rounds of eight dependent-free integer operations in
+    each of out.numel() threads and store each thread's folded registers
+    into ``out`` ((n,) int32, n a multiple of 256).  ``kind`` "logic": a
+    round is eight three-input logic operations r_i = (r_i & mask) ^
+    r_{i+1}; "add": eight three-input additions r_i + mask + r_{i+1};
+    "popc": eight population counts, each followed by one exclusive-or.
+    8 * iters * n operations over the kernel's time is the
+    card's rate for that instruction; chip_smoke.py times it and prices
+    the scan's bound with the two rates.
+
+    Bound: integer operations, by construction (one 4-byte store a
+    thread).  Design: csrc/probes.cu, eight independent registers a
+    thread so that the pipeline stays full."""
+    if kind not in INT_RATE_KINDS:
+        raise ValueError(f"int_rate: unknown kind {kind!r}")
+    n = out.numel()
+    _check(out, "out", (n,), torch.int32)
+    if n % 256 or iters < 0:
+        raise ValueError(f"int_rate: {n} threads (a multiple of 256), "
+                         f"{iters} rounds")
+    if _route(out) == "cpu":
+        out.copy_(int_rate_plain(kind, iters, n))
+        return out
+    lib = ck.build()
+    _launch("int_rate", out.device, lib.tt_int_rate,
+            INT_RATE_KINDS.index(kind), int(iters), INT_RATE_MASK,
+            _ptr(out), n)
+    return out
+
+
+def int_rate_plain(kind: str, iters: int, n: int) -> torch.Tensor:
+    """Plain version of int_rate: the same rounds in int64 tensors."""
+    m32 = 0xFFFFFFFF
+    tid = torch.arange(n, dtype=torch.int64)
+    r = [((tid + 1) * 2654435761 + 40503 * i) & m32 for i in range(8)]
+
+    def popc(v):
+        v = v - ((v >> 1) & 0x55555555)
+        v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+        v = (v + (v >> 4)) & 0x0F0F0F0F
+        return ((v * 0x01010101) & m32) >> 24
+
+    for _ in range(iters):
+        for i in range(8):
+            nxt = r[(i + 1) & 7]
+            if kind == "add":
+                r[i] = (r[i] + INT_RATE_MASK + nxt) & m32
+            else:
+                r[i] = ((r[i] & INT_RATE_MASK) if kind == "logic"
+                        else popc(r[i])) ^ nxt
+    acc = r[0]
+    for v in r[1:]:
+        acc = acc ^ v
+    acc = torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc)
+    return acc.to(torch.int32)
