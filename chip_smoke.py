@@ -42,6 +42,15 @@ port's receive paths on the card in phases, one line per result:
      on a resident noise block, fused (C=1024, C=10240) and classic
      (fleet-afc, fleet-aligned, bench-afc), with launches per block.
 
+Beside these: tea, the key search (tea_search) against its plain version
+at a large deferred decryption and a bruteforce sweep, and again at each
+deferred launch the fused stream made; the fleet capture carries TEA1 and
+TEA2 carriers, decrypted on every fleet path; stream, the live path
+(Pipeline.process_block, a checkpoint after block 2 onto a fresh
+Pipeline) fused and classic with two frame workers, each held against
+run_offline on the same frame layer; and process_block's time split by
+part at C=1024 and C=10240.
+
 Every decode phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a kernel of that path that
 was never launched fails the run.
@@ -87,6 +96,8 @@ KERNELS = {
     "bit_place": (CSRC + "probes.cu", "perf/place_probe.py:70"),
     "ops_probe": (CSRC + "probes.cu", "perf/mosaic_ops_probe.py:31"),
     "iir_recursion": (CSRC + "probes.cu", "perf/scan_overhead_probe.py:135"),
+    # the reference's key search is XLA, no Pallas kernel: its rounds
+    "tea_search": (CSRC + "tea.cu", "tetraear_tpu/crypto/batch.py:87"),
 }
 FUSED_KERNELS = ("fft2p", "band_synth", "fused_backhalf")
 
@@ -109,6 +120,10 @@ FP32_OPS_PER_S = 67e12
 N_SMS = 132
 LOGIC_PER_CLK_SM = 64.0
 QUARTER_PER_CLK_SM = 16.0
+# instructions an SM issues a clock (4 schedulers, a warp each): the
+# ceiling of integer work the compiler spreads over the integer pipe and
+# the multiply-add pipe (IMAD forms of shifts and additions)
+ISSUE_PER_CLK_SM = 128.0
 SM_CLOCK_HZ = 1.98e9
 
 DEV = "cuda"            # "cpu" in the rehearsal
@@ -167,21 +182,24 @@ def nbytes(*tensors) -> int:
 
 
 def bound(in_out_bytes: int, ops: float, logic: float = 0.0,
-          quarter: float = 0.0) -> dict:
+          quarter: float = 0.0, issue: float = 0.0) -> dict:
     """The least time the card could take: each input read once and each
     output written once at the memory rate, or the operations, whichever
     is larger.  ``ops`` are float32 operations at the float32 rate,
     ``logic`` 32-bit integer logic operations and ``quarter`` population
     counts and conversions, each at its own instruction rate; the three run in
     different pipes, so the slowest of them is what the operations need.
+    ``issue`` are 32-bit integer instructions that may go to either
+    integer-capable pipe, at the SM's issue rate.
     ``fp32_rate_ms`` keeps the earlier yardstick beside it: every
     operation at the float32 rate."""
     t_bytes = in_out_bytes / HBM_BYTES_PER_S * 1e3
     per_ms = N_SMS * SM_CLOCK_HZ * 1e-3
     t_ops = max(ops / FP32_OPS_PER_S * 1e3,
                 logic / (LOGIC_PER_CLK_SM * per_ms),
-                quarter / (QUARTER_PER_CLK_SM * per_ms))
-    total = ops + logic + quarter
+                quarter / (QUARTER_PER_CLK_SM * per_ms),
+                issue / (ISSUE_PER_CLK_SM * per_ms))
+    total = ops + logic + quarter + issue
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(in_out_bytes), "ops": float(total),
@@ -503,6 +521,203 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
         f"pass 2 about {r['ms'] - res['fft2p_pass1']['ms']:.4f} ms (not "
         f"timed: fft2p less fft2p_pass1, a difference of two means); "
         f"plan {plan}")
+    return res
+
+
+# 32-bit integer instructions of one TEA half round (csrc/tea.cu), the
+# fewest its expression compiles to: TEA2 a shift-add (LEA) for each key
+# term, the sum term, the three-input exclusive-or (inverted) and one
+# three-input addition for the subtraction, 5; TEA1 two shifts, the
+# three-input exclusive-or with the sum, the addition of v, the exclusive-or
+# with key + sum (inverted) and the subtraction, 6 (key + sum held).  64
+# half rounds an 8-byte block, at the issue rate (bound's ``issue``)
+TEA_INSTR_PER_BLOCK = {"TEA1": 64 * 6.0, "TEA2": 64 * 5.0}
+# (name, keys, payloads) of the two fixed sizes: a large deferred
+# decryption (16 keys a family, 4096 pending frames) and a bruteforce
+# sweep; the deferred launches the stream phase makes are held apart
+# (phase_tea_path)
+TEA_SIZES = (("deferred", 16, 4096), ("bruteforce", 65536, 256))
+TEA_KEY_BYTES = {"TEA1": 10, "TEA2": 16}
+
+
+def phase_tea(seed: int, reps: int, int_rates: dict) -> dict:
+    """tea_search against its plain version at both sizes, TEA1 and TEA2,
+    32-byte payloads: scores, plaintexts and the best-key pairs bit-equal,
+    a few pairs checked against TEADecryptor.  Returns {size: result} of
+    the search mode (TEA1 times; TEA2's beside them)."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.crypto import batch as tb
+    from tetraear_tpu_torch.crypto.tea import TEADecryptor
+    rng = np.random.default_rng(seed)
+    res = {}
+    for size, k, b in TEA_SIZES:
+        if REHEARSE:
+            k, b = min(k, 8), min(b, 16)
+        for alg in ("TEA1", "TEA2"):
+            pay = rng.integers(0, 256, (b, 32), dtype=np.uint8)
+            keys = rng.integers(0, 256, (k, TEA_KEY_BYTES[alg]),
+                                dtype=np.uint8)
+            # a payload no key decodes scores the same under many keys:
+            # plant a printable plaintext under key 3 in payload 0
+            pay[0] = np.frombuffer(TEADecryptor(
+                keys[3].tobytes(), alg).encrypt(b"\x82TEA KEY SEARCH CHECK "
+                                                b"0123456789"), np.uint8)
+            v0, v1, kw, tea1, _ = tb._device_words(pay, keys, alg, DEV)
+            s_k = tb.tea_search(v0, v1, kw, tea1)
+            s_p = tb.tea_search_plain(v0, v1, kw, tea1)
+            d_k = tb.tea_decrypt(v0, v1, kw, tea1)
+            d_p = tb.tea_decrypt_plain(v0, v1, kw, tea1)
+            best = torch.argmax(s_k, dim=0)
+            kb = kw[best].contiguous()
+            q_k = tb.tea_decrypt_pairs(v0, v1, kb, tea1)
+            q_p = tb.tea_decrypt_pairs_plain(v0, v1, kb, tea1)
+            if not (torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
+                    and torch.equal(q_k, q_p)):
+                fail(f"tea_search {size} {alg} K={k} B={b}: scores "
+                     f"{(s_k != s_p).sum().item()}, plaintext bytes "
+                     f"{(d_k != d_p).sum().item()}, best-key bytes "
+                     f"{(q_k != q_p).sum().item()} differ from the plain "
+                     f"version")
+            if int(best[0]) != 3:
+                fail(f"tea_search {size} {alg}: payload 0's best key is "
+                     f"{int(best[0])}, not the planted 3")
+            d_host = d_k.cpu().numpy()
+            for ki, bi in ((0, 0), (3, 0), (k - 1, b - 1), (k // 2, b // 3)):
+                want = TEADecryptor(keys[ki].tobytes(), alg).decrypt(
+                    pay[bi].tobytes())
+                if d_host[ki, bi].tobytes() != want:
+                    fail(f"tea_search {size} {alg}: key {ki} payload {bi} "
+                         f"differs from TEADecryptor")
+            del d_k, d_p, d_host, q_k, q_p
+            n_blocks = k * b * 4
+            r = {"max_abs_err": 0.0, "tol": 0.0, "keys": k, "payloads": b,
+                 "bytes_per_payload": 32,
+                 "ms": event_ms(lambda: tb.tea_search(v0, v1, kw, tea1),
+                                reps),
+                 "decrypt_ms": event_ms(
+                     lambda: tb.tea_decrypt(v0, v1, kw, tea1), reps),
+                 "plain_ms": event_ms(
+                     lambda: tb.tea_search_plain(v0, v1, kw, tea1),
+                     min(reps, 2)),
+                 "library_ms": None,
+                 **bound(nbytes(v0, v1, kw, s_k), 0.0,
+                         issue=TEA_INSTR_PER_BLOCK[alg] * n_blocks)}
+            # the same instructions at the three-input addition rate the
+            # rate loop reads (one pipe): no lower bound, a yardstick
+            r["add_rate_read_ms"] = (TEA_INSTR_PER_BLOCK[alg] * n_blocks
+                                     / int_rates["add_per_s"] * 1e3)
+            r["decrypt_bound_ms"] = bound(
+                nbytes(v0, v1, kw) + k * b * 32, 0.0,
+                issue=TEA_INSTR_PER_BLOCK[alg] * n_blocks)["bound_ms"]
+            del v0, v1, kw, s_k, s_p
+            res[f"{size}_{alg}"] = r
+            say(f"kernel tea_search {size} {alg} K={k} B={b} L=32: scores, "
+                f"plaintexts and best-key pairs bit-equal to the plain "
+                f"version, spot pairs equal to TEADecryptor; search "
+                f"{r['ms']:.4f} ms, decrypt {r['decrypt_ms']:.4f} ms "
+                f"(bound {r['decrypt_bound_ms']:.4f}), plain search "
+                f"{r['plain_ms']:.4f} ms, library call none, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} "
+                f"bytes, {r['ops']:.3e} integer instructions at "
+                f"{ISSUE_PER_CLK_SM:.0f} a clock an SM; at the addition "
+                f"rate read, one pipe: {r['add_rate_read_ms']:.4f} ms)")
+    sync()
+    return res
+
+
+def tea_entry(tea: dict, path: list, counts: dict) -> dict:
+    """The kernels line's tea_search entry: the decrypt mode at the
+    largest deferred launch of the fused stream (the mode and shape the
+    path runs) as its numbers; every launch of the path and the two fixed
+    sizes (search and decrypt modes) beside them."""
+    src, replaces = KERNELS["tea_search"]
+    r = max(path, key=lambda p: p["keys"] * p["payloads"] * p["length"])
+    entry = {"name": "tea_search", "route": "cuda", "source": src,
+             "replaces": replaces, "launches": counts["tea_search"],
+             "max_abs_err": max(p["max_abs_err"] for p in path),
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": None,
+             "shape": f"K={r['keys']} B={r['payloads']} L={r['length']} "
+                      f"{r['alg']}, decrypt mode (a deferred launch of the "
+                      f"fused stream)",
+             "path_launches": path}
+    for key, v in tea.items():
+        entry[key] = {k: v[k] for k in ("keys", "payloads", "ms",
+                                        "decrypt_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "decrypt_bound_ms",
+                                        "add_rate_read_ms", "bytes",
+                                        "ops")}
+    return entry
+
+
+def record_tea_calls(calls: list):
+    """Wrap crypto.batch.tea_decrypt_batch, which batch_decrypt_frames
+    calls once a cipher family for a block's pending frames, so that the
+    inputs of each deferred launch land in ``calls`` as (payloads, keys,
+    algorithm); returns the function that undoes the wrap."""
+    import numpy as np
+    from tetraear_tpu_torch.crypto import batch as tb
+    orig = tb.tea_decrypt_batch
+
+    def recording(payloads, keys, algorithm="TEA1", device=None):
+        calls.append((np.array(payloads, np.uint8), list(keys), algorithm))
+        return orig(payloads, keys, algorithm, device=device)
+
+    tb.tea_decrypt_batch = recording
+
+    def undo():
+        tb.tea_decrypt_batch = orig
+    return undo
+
+
+def phase_tea_path(calls: list, reps: int) -> list:
+    """tea_search on the inputs of each deferred launch a stream made
+    (``record_tea_calls``): the decrypt mode it ran there and the search
+    mode bit-equal to their plain versions, a few pairs equal to
+    TEADecryptor; the decrypt mode timed beside its plain version and
+    bound.  Returns one result a launch."""
+    import torch
+    from tetraear_tpu_torch.crypto import batch as tb
+    from tetraear_tpu_torch.crypto.tea import TEADecryptor
+    if not calls:
+        fail("tea path: the stream made no deferred key search")
+    res = []
+    for pay, keys, alg in calls:
+        v0, v1, kw, tea1, b = tb._device_words(pay, keys, alg, DEV)
+        k, w = kw.shape[0], v0.shape[1]
+        d_k = tb.tea_decrypt(v0, v1, kw, tea1)
+        d_p = tb.tea_decrypt_plain(v0, v1, kw, tea1)
+        s_k = tb.tea_search(v0, v1, kw, tea1)
+        s_p = tb.tea_search_plain(v0, v1, kw, tea1)
+        if not (torch.equal(d_k, d_p) and torch.equal(s_k, s_p)):
+            fail(f"tea path {alg} K={k} B={b} L={8 * w}: plaintext bytes "
+                 f"{(d_k != d_p).sum().item()}, scores "
+                 f"{(s_k != s_p).sum().item()} differ from the plain "
+                 f"version")
+        d_host = d_k.cpu().numpy()
+        for ki, bi in ((0, 0), (k - 1, b - 1), (k // 2, b // 2)):
+            want = TEADecryptor(bytes(keys[ki]), alg).decrypt(
+                pay[bi].tobytes())
+            if d_host[ki, bi].tobytes() != want:
+                fail(f"tea path {alg}: key {ki} payload {bi} differs from "
+                     f"TEADecryptor")
+        r = {"alg": alg, "keys": k, "payloads": b, "length": 8 * w,
+             "max_abs_err": 0.0,
+             "ms": event_ms(lambda: tb.tea_decrypt(v0, v1, kw, tea1), reps),
+             "plain_ms": event_ms(
+                 lambda: tb.tea_decrypt_plain(v0, v1, kw, tea1), reps),
+             **bound(nbytes(v0, v1, kw, d_k), 0.0,
+                     issue=TEA_INSTR_PER_BLOCK[alg] * k * b * w)}
+        res.append(r)
+        say(f"kernel tea_search on a deferred launch of the stream, {alg} "
+            f"K={k} B={b} L={8 * w}: plaintexts and scores bit-equal to the "
+            f"plain version, spot pairs equal to TEADecryptor; decrypt "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library call "
+            f"none, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    sync()
     return res
 
 
@@ -892,37 +1107,84 @@ def check_fleet_texts(phase: str, frames: list, active: list) -> None:
         fail(f"{phase}: {len(wrong)} texts on the wrong carrier")
 
 
+# encrypted carriers of the fleet captures: carrier -> (cipher, common
+# key), each pair one that the reference's key-plan order decodes to the
+# carrier's own text (an earlier common key can score higher on another
+# carrier's plaintext)
+ENCRYPTED = {
+    1024: {256: ("TEA1", "0123456789ABCDEF0123"),
+           597: ("TEA1", "FEDCBA9876543210FEDC"),
+           85: ("TEA2", "0123456789ABCDEF0123456789ABCDEF"),
+           939: ("TEA2", "FEDCBA9876543210FEDCBA9876543210")},
+    8: {6: ("TEA1", "0123456789ABCDEF0123"),
+        7: ("TEA2", "FEDCBA9876543210FEDCBA9876543210")},
+}
+
+
 def fleet_setup(fs: float, c: int, nfft: int | None, n_blocks: int,
-                seed: int) -> tuple:
-    """(offsets, modulated carriers, capture) of a fleet decode."""
+                seed: int, encrypted: bool = False) -> dict:
+    """Offsets, modulated carriers, encrypted carriers and capture of a
+    fleet decode."""
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
     from tetraear_tpu_torch.golden import fleet_capture
     offsets = grid(c)
+    enc = ({ci: (cipher, bytes.fromhex(key))
+            for ci, (cipher, key) in ENCRYPTED[c].items()}
+           if encrypted else {})
     active = ([5, 170, 341, 512, 683, 854, 1019] if c == 1024
+              else [0, 2, 4, 5] if encrypted
               else sorted({(c - 1) * i // 6 for i in range(7)}))
     bl = CarrierBankDemod(fs=fs, freqs_hz=offsets, frontend="fft",
                           nfft=nfft).block_len
     t0 = time.time()
-    iq = fleet_capture(fs, offsets, active, n_blocks * bl, seed=seed)
+    iq = fleet_capture(fs, offsets, active, n_blocks * bl, seed=seed,
+                       encrypted=enc)
     say(f"capture at {fs / 1e6:g} MHz: {len(active)} of {c} carriers "
-        f"modulated over {n_blocks} blocks, made in {time.time() - t0:.1f} s")
-    return offsets, active, iq
+        f"modulated, {len(enc)} of them TEA-encrypted "
+        f"({', '.join(f'{ci} {v[0]}' for ci, v in sorted(enc.items()))}), "
+        f"over {n_blocks} blocks, made in {time.time() - t0:.1f} s")
+    return {"fs": fs, "offsets": offsets, "active": active,
+            "encrypted": enc, "iq": iq, "block_len": bl}
 
 
-def phase_decode_fleet(c: int, setup: tuple) -> tuple:
-    """The fused path at fleet size; returns (launches, frames)."""
-    offsets, active, iq = setup
+def check_enc_texts(phase: str, frames: list, encrypted: dict) -> int:
+    """Every encrypted carrier's SDS text comes back decrypted on its own
+    carrier and on no other; returns the decrypted frames."""
+    from tetraear_tpu_torch.golden import secret_text
+    good = {}
+    for f in frames:
+        if f.get("burst_crc") and f.get("decrypted"):
+            good.setdefault(f["carrier"], []).append(f.get("sds_message"))
+    for ci in encrypted:
+        want = "[TXT] " + secret_text(ci)[1:].rstrip(b"\0").decode()
+        if want not in good.get(ci, []):
+            fail(f"{phase}: carrier {ci}'s encrypted text not decrypted "
+                 f"({good.get(ci, [])[:3]})")
+    wrong = [f for f in frames if str(f.get("sds_message", "")).startswith(
+        "[TXT] SECRET ") and f.get("sds_message") != f"[TXT] SECRET {f['carrier']}"]
+    if wrong:
+        fail(f"{phase}: {len(wrong)} decrypted texts on the wrong carrier")
+    return sum(len(v) for ci, v in good.items() if ci in encrypted)
+
+
+def phase_decode_fleet(c: int, setup: dict) -> tuple:
+    """The fused path at fleet size, encrypted carriers decrypted by the
+    deferred key search; returns (launches, frames)."""
+    fs, offsets, active = setup["fs"], setup["offsets"], setup["active"]
     t0 = time.time()
     frames, stats, pipe, counts = run_pipeline(
-        array_source(iq, FS_FLEET), FS_FLEET, offsets, DEV, 2, **FUSED_CFG)
+        array_source(setup["iq"], fs), fs, offsets, DEV, 2,
+        **dict(FUSED_CFG, auto_decrypt=True))
     wall = time.time() - t0
     if pipe.runner.fused is None:
         fail("decode fleet: not on the fused path")
-    need_launched("decode fleet", counts, FUSED_KERNELS)
+    need_launched("decode fleet", counts, FUSED_KERNELS + ("tea_search",))
     check_fleet_texts("decode fleet", frames, active)
+    n_dec = check_enc_texts("decode fleet", frames, setup["encrypted"])
     say(f"decode fleet C={c}: {stats.frames} frames, {stats.crc_pass} CRC "
-        f"pass, SDS text on carriers {active}; launches {counts}; "
-        f"wall {wall:.2f} s incl. first-call setup")
+        f"pass, SDS text on carriers {active}, {n_dec} decrypted on the "
+        f"encrypted carriers; launches {counts}; wall {wall:.2f} s incl. "
+        f"first-call setup")
     return counts, frames
 
 
@@ -985,32 +1247,225 @@ def run_runner(iq, bank, device: str, blocks_per_dispatch: int = 2,
     return out["frames"], runner, dict(ck.launches)
 
 
-def phase_decode_fleet_afc(c: int, setup: tuple, fused_frames: list,
-                           nfft: int | None) -> dict:
-    """The classic chain (AFC on) beside the fused one, same capture."""
-    offsets, active, iq = setup
+def phase_decode_fleet_afc(c: int, setup: dict, fused_frames: list,
+                           nfft: int | None, workers: int = 0) -> tuple:
+    """The classic chain (AFC on) beside the fused one, same capture: its
+    CRC-passing frames on the modulated carriers equal the fused path's.
+    With the in-process frame layer and no decryption; or, with
+    ``workers``, on the worker-sharded layer with the encrypted carriers
+    decrypted (the reference of the classic stream phase, which runs
+    that layer: the two layers reassemble differently on noise carriers,
+    because scoring candidate plaintexts feeds the MAC parsers of the
+    decoders that score).  Returns (launches, frames)."""
+    fs, offsets, active = setup["fs"], setup["offsets"], setup["active"]
+    name = "decode fleet-afc" + ("-workers" if workers else "")
+    kernels = ("frame_scan_even", "band_synth_y")
     t0 = time.time()
     frames, stats, pipe, counts = run_pipeline(
-        array_source(iq, FS_FLEET), FS_FLEET, offsets, DEV, 2,
-        frontend="fft", carrier_afc=True, auto_decrypt=False)
+        array_source(setup["iq"], fs), fs, offsets, DEV, 2,
+        frontend="fft", carrier_afc=True, auto_decrypt=bool(workers),
+        frame_workers=workers)
+    pipe.close()
     wall = time.time() - t0
     if pipe.runner.fused is not None:
-        fail("decode fleet-afc: expected the classic chain")
+        fail(f"{name}: expected the classic chain")
     if nfft is None and not pipe.bank.channelizer.quantized:
-        fail("decode fleet-afc: expected the quantized extraction")
-    need_launched("decode fleet-afc", counts,
-                  ("frame_scan_even", "band_synth_y"))
-    check_fleet_texts("decode fleet-afc", frames, active)
+        fail(f"{name}: expected the quantized extraction")
+    need_launched(name, counts,
+                  kernels + (("tea_search",) if workers else ()))
+    check_fleet_texts(name, frames, active)
+    if workers:
+        check_enc_texts(name, frames, setup["encrypted"])
     got, want = crc_texts(frames, active), crc_texts(fused_frames, active)
     if got != want:
-        fail(f"decode fleet-afc: {len(got)} CRC-passing frames on the "
+        fail(f"{name}: {len(got)} CRC-passing frames on the "
              f"modulated carriers, the fused path has {len(want)}; first "
              f"difference {next((a, b) for a, b in zip(got + [None], want + [None]) if a != b)}")
-    say(f"decode fleet-afc C={c}: {stats.frames} frames, {stats.crc_pass} "
+    say(f"{name} C={c}: {stats.frames} frames, {stats.crc_pass} "
         f"CRC pass, {len(got)} on the modulated carriers, equal to the "
-        f"fused path's; launches "
-        f"{ {k: v for k, v in counts.items() if v} }; wall {wall:.2f} s")
-    return counts
+        f"fused path's"
+        + (f" ({workers} frame workers, encrypted carriers decrypted)"
+           if workers else "")
+        + f"; launches { {k: v for k, v in counts.items() if v} }; wall "
+        f"{wall:.2f} s")
+    return counts, frames
+
+
+def stream_pipeline(setup: dict, workers: int, on_frame, **cfg):
+    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    return Pipeline(PipelineConfig(
+        sample_rate=setup["fs"], carrier_offsets_hz=tuple(setup["offsets"]),
+        device=DEV, detect_gate=False, validate=False,
+        frame_workers=workers, **cfg), on_frame=on_frame)
+
+
+def phase_stream(name: str, c: int, setup: dict, offline: list,
+                 kernels, workers: int = 0, tea_calls: list | None = None,
+                 **cfg) -> tuple:
+    """The live path on a fleet capture: Pipeline.process_block block by
+    block, save_checkpoint after block 2, the rest on a fresh Pipeline
+    after load_checkpoint.  Its frame list must equal run_offline's on
+    the same capture (``offline``), the encrypted carriers' texts come
+    back decrypted, and every kernel of the path (the key search too)
+    was launched.  ``tea_calls`` collects the inputs of each deferred
+    key search (record_tea_calls).  Returns (launches, wall s)."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    path = ROOT / "build" / f"chip_smoke_{name}.npz"
+    path.parent.mkdir(exist_ok=True)
+    bl = setup["block_len"]
+    blocks = [setup["iq"][i * bl:(i + 1) * bl]
+              for i in range(len(setup["iq"]) // bl)]
+    frames = []
+    undo = record_tea_calls(tea_calls) if tea_calls is not None else None
+    ck.reset_launches()
+    t0 = time.time()
+    pipe = stream_pipeline(setup, workers, frames.append, **cfg)
+    try:
+        for b in blocks[:2]:
+            pipe.process_block(b)
+        pipe.save_checkpoint(path)
+    finally:
+        pipe.close()
+    pipe = stream_pipeline(setup, workers, frames.append, **cfg)
+    try:
+        pipe.load_checkpoint(path)
+        for b in blocks[2:]:
+            pipe.process_block(b)
+        sync()
+        counts = dict(ck.launches)
+        wall = time.time() - t0
+        sharded = type(pipe.batch).__name__
+    finally:
+        pipe.close()
+        if undo is not None:
+            undo()
+    path.unlink()
+    need_launched(f"stream {name}", counts, tuple(kernels) + ("tea_search",))
+    if frames_key(frames) != frames_key(offline):
+        diff = next((a, b) for a, b in zip(frames_key(frames) + [None],
+                                           frames_key(offline) + [None])
+                    if a != b)
+        fail(f"stream {name}: {len(frames)} frames from process_block and a "
+             f"checkpoint, run_offline gave {len(offline)}; first "
+             f"difference {diff}")
+    check_fleet_texts(f"stream {name}", frames, setup["active"])
+    n_dec = check_enc_texts(f"stream {name}", frames, setup["encrypted"])
+    say(f"stream {name} C={c}: process_block over {len(blocks)} blocks, "
+        f"checkpoint after block 2 onto a fresh Pipeline ({sharded}"
+        f"{f', {workers} workers' if workers else ''}): {len(frames)} "
+        f"frames equal to run_offline's, {n_dec} decrypted on the "
+        f"encrypted carriers; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; wall {wall:.2f} s "
+        f"incl. setup")
+    return counts, wall
+
+
+def process_block_split(pipe, blocks: list, n_frame: int | None = None,
+                        n_whole: int | None = None) -> dict:
+    """ms a block of Pipeline.process_block's parts on fresh host blocks,
+    each ended by a synchronise: the complex64 block copied to the card,
+    its split into the back half's layout there (DecodeRunner.split, the
+    layout step of DecodeRunner.ingest), the device block step, fetch +
+    frame layer (on the first ``n_frame`` timed blocks only); then
+    process_block itself on the first ``n_whole``; and, beside them,
+    what the JAX package's ingest would cost instead: the host conversion
+    (kernels.c2p_np / c2r_np) and the copy of its float32 result.
+    blocks[0] is a warm-up."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import kernels
+    runner = pipe.runner
+    parts = {k: [] for k in ("host_to_device", "card_split", "block_step",
+                             "frame_layer", "process_block",
+                             "host_conversion", "host_conversion_copy")}
+    timed = blocks[1:]
+    n_frame = len(timed) if n_frame is None else n_frame
+    n_whole = len(timed) if n_whole is None else n_whole
+    pipe.process_block(blocks[0])          # warm-up: first-call setup
+    sync()
+    for i, b in enumerate(timed):
+        t0 = time.perf_counter()
+        xc = torch.from_numpy(np.require(b[None], np.complex64, ("C", "W")))
+        xc = xc.to(pipe.device, copy=True)
+        sync()
+        t1 = time.perf_counter()
+        x = runner.split(xc)[0]
+        sync()
+        t2 = time.perf_counter()
+        ys, pipe.state = runner.step(x, pipe.state)
+        sync()
+        t3 = time.perf_counter()
+        parts["host_to_device"].append((t1 - t0) * 1e3)
+        parts["card_split"].append((t2 - t1) * 1e3)
+        parts["block_step"].append((t3 - t2) * 1e3)
+        if i < n_frame:
+            runner.frames_of(tuple(y.cpu().numpy() for y in ys))
+            parts["frame_layer"].append((time.perf_counter() - t3) * 1e3)
+        t0 = time.perf_counter()
+        host = (kernels.c2p_np if runner.fused else kernels.c2r_np)(b)
+        t1 = time.perf_counter()
+        xh = torch.from_numpy(host).to(pipe.device)
+        sync()
+        t2 = time.perf_counter()
+        parts["host_conversion"].append((t1 - t0) * 1e3)
+        parts["host_conversion_copy"].append((t2 - t1) * 1e3)
+        if not torch.equal(xh, x):
+            fail("process_block split: the card's split differs from the "
+                 "host conversion")
+        del x, xc, xh, host
+    for b in timed[:n_whole]:
+        t0 = time.perf_counter()
+        pipe.process_block(b)
+        sync()
+        parts["process_block"].append((time.perf_counter() - t0) * 1e3)
+    return {k: sum(v) / len(v) for k, v in parts.items()} | {
+        "blocks": len(timed), "frame_layer_blocks": n_frame,
+        "process_block_blocks": n_whole, "block_ms": pipe.block_len
+        / pipe.config.sample_rate * 1e3,
+        "block_mbytes": pipe.block_len * 8 / 1e6}
+
+
+def phase_process_block_timing(name: str, setup: dict | None, fs: float,
+                               c: int, n_blocks: int, seed: int,
+                               chain_ms: float | None,
+                               n_frame: int | None = None,
+                               n_whole: int | None = None) -> dict:
+    """process_block ms/block on fresh host blocks (the capture's, or
+    noise when ``setup`` is None), split by part, beside the resident
+    chained step; the frame layer and process_block itself on the first
+    ``n_frame`` / ``n_whole`` timed blocks (the frame layer's time is the
+    host's, and a noise block at C=10240 takes seconds of it)."""
+    import numpy as np
+    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    pipe = Pipeline(PipelineConfig(
+        sample_rate=fs, carrier_offsets_hz=tuple(grid(c)), device=DEV,
+        detect_gate=False, validate=False, **FUSED_CFG))
+    bl = pipe.block_len
+    if setup is not None:
+        iq = setup["iq"]
+        blocks = [iq[i * bl:(i + 1) * bl] for i in range(len(iq) // bl)]
+    else:
+        rng = np.random.default_rng(seed)
+        blocks = []
+        for _ in range(n_blocks + 1):
+            v = rng.standard_normal(2 * bl, dtype=np.float32)
+            blocks.append(v.view(np.complex64))
+    r = process_block_split(pipe, blocks, n_frame, n_whole)
+    r["chain_ms"] = chain_ms
+    say(f"process_block {name} C={c}: {r['process_block']:.2f} ms/block "
+        f"over {r['process_block_blocks']} fresh host blocks of "
+        f"{r['block_mbytes']:.0f} MB ({r['block_ms']:.1f} ms of signal); "
+        f"over {r['blocks']} blocks: host-to-device "
+        f"{r['host_to_device']:.2f}, split on the card "
+        f"{r['card_split']:.2f}, block step {r['block_step']:.2f}, fetch + "
+        f"frame layer {r['frame_layer']:.2f} ms (over "
+        f"{r['frame_layer_blocks']}); the resident chained step "
+        + (f"{chain_ms:.2f} ms" if chain_ms is not None else "not timed")
+        + f"; the JAX package's ingest instead: host conversion "
+        f"{r['host_conversion']:.2f} and its copy "
+        f"{r['host_conversion_copy']:.2f} ms")
+    del pipe, blocks
+    return r
 
 
 def phase_decode_fleet_aligned(c: int, nfft: int | None) -> tuple:
@@ -1019,7 +1474,8 @@ def phase_decode_fleet_aligned(c: int, nfft: int | None) -> tuple:
     row-extraction kernel through DecodeRunner on a bank built with the
     extraction keyword; the two frame lists must be equal."""
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
-    offsets, active, iq = fleet_setup(FS_ALIGNED, c, nfft, 2, seed=13)
+    setup = fleet_setup(FS_ALIGNED, c, nfft, 2, seed=13)
+    offsets, active, iq = setup["offsets"], setup["active"], setup["iq"]
     frames, stats, pipe, counts = run_pipeline(
         array_source(iq, FS_ALIGNED), FS_ALIGNED, offsets, DEV, 2,
         frontend="fft", carrier_afc=True, auto_decrypt=False)
@@ -1565,21 +2021,35 @@ def main(argv: list) -> int:
     kern_big = phase_kernels(FS_BENCH, c_bench, seed=2, reps=3,
                              nfft=nfft_bench)
     phase_kernels_extra(seed=6)
+    tea = phase_tea(seed=8, reps=5, int_rates=int_rates)
     say(f"[{time.time() - t_start:.0f} s] kernels checked")
     phase_decode_small()
-    setup = fleet_setup(FS_FLEET, c_fleet, nfft_fleet, 2, seed=11)
+    # Pipeline takes no nfft: the rehearsal's fleet is the small geometry
+    # (2.304 MHz, C=8, nfft 2^18), which the fused path serves too
+    fleet_fs = FS_SMALL if REHEARSE else FS_FLEET
+    setup = fleet_setup(fleet_fs, c_fleet, nfft_fleet, 3, seed=11,
+                        encrypted=True)
+    counts_fused, fused_frames = phase_decode_fleet(c_fleet, setup)
+    counts_afc, _ = phase_decode_fleet_afc(
+        c_fleet, setup, fused_frames, nfft_fleet)
+    counts_afc_w, afc_frames_w = phase_decode_fleet_afc(
+        c_fleet, setup, fused_frames, nfft_fleet, workers=2)
+    tea_calls = []
+    counts_stream, _ = phase_stream(
+        "fused", c_fleet, setup, fused_frames, FUSED_KERNELS,
+        tea_calls=tea_calls, **dict(FUSED_CFG, auto_decrypt=True))
+    counts_stream_w, _ = phase_stream(
+        "classic-workers", c_fleet, setup, afc_frames_w,
+        ("frame_scan_even", "band_synth_y"), workers=2, frontend="fft",
+        carrier_afc=True, auto_decrypt=True)
+    tea_path = phase_tea_path(tea_calls, reps=5)
+    pb_fleet = phase_process_block_timing("fleet", setup, fleet_fs, c_fleet,
+                                          2, 0, None)
+    del fused_frames, afc_frames_w, setup, tea_calls
+    say(f"[{time.time() - t_start:.0f} s] fleet decodes and streams at "
+        f"{fleet_fs / 1e6:g} MHz done")
     if REHEARSE:
-        # Pipeline takes no nfft: the rehearsal drives the runner's twin
-        say("rehearsal: fleet decodes skipped (full-size transforms)")
-        counts_fused = {k: 0 for k in ck.launches}
-        counts_afc = counts_al = counts_x = dict(counts_fused)
-    else:
-        counts_fused, fused_frames = phase_decode_fleet(c_fleet, setup)
-        counts_afc = phase_decode_fleet_afc(c_fleet, setup, fused_frames,
-                                            nfft_fleet)
-        del fused_frames
-    del setup
-    say(f"[{time.time() - t_start:.0f} s] fleet decodes at 36.864 MHz done")
+        counts_al = counts_x = {k: 0 for k in ck.launches}
     counts_rtl = phase_decode_rtl()
     counts_el = phase_decode_element()
     if not REHEARSE:
@@ -1602,6 +2072,10 @@ def main(argv: list) -> int:
         "classic_bench_afc": phase_chain_classic(
             "bench-afc", FS_BENCH, c_bench, 3, 4, nfft_bench),
     }
+    pb_fleet["chain_ms"] = chains["c1024"]["ms_per_block"]
+    pb_bench = phase_process_block_timing(
+        "bench", None, FS_SMALL if REHEARSE else FS_BENCH, c_bench, 2, 17,
+        chains["c10240"]["ms_per_block"], n_frame=1, n_whole=1)
     say(f"[{time.time() - t_start:.0f} s] chains timed")
 
     bad = sorted(m for m in sys.modules
@@ -1623,6 +2097,9 @@ def main(argv: list) -> int:
         "ops_probe": counts_op, "iir_recursion": counts_iir}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
+        if name == "tea_search":
+            kernels.append(tea_entry(tea, tea_path, counts_stream))
+            continue
         k1, k2 = kern[name], kern_big[name]
         if main_path[name][name] == 0:
             fail(f"{name}: no launch on its path")
@@ -1654,13 +2131,17 @@ def main(argv: list) -> int:
         "launches_by_run": {
             "decode_fleet_fused": counts_fused,
             "decode_fleet_afc": counts_afc,
+            "decode_fleet_afc_workers": counts_afc_w,
             "decode_fleet_aligned": counts_al,
             "decode_fleet_aligned_extract": counts_x,
             "decode_rtl_conv": counts_rtl["conv"],
             "decode_rtl_fft": counts_rtl["fft"],
             "decode_element": counts_el, "phasor_prepass": counts_ph,
             "pass1_probe": counts_p1, "place_probe": counts_pl,
-            "ops_probe": counts_op, "iir_probe": counts_iir},
+            "ops_probe": counts_op, "iir_probe": counts_iir,
+            "stream_fused": counts_stream,
+            "stream_classic_workers": counts_stream_w},
+        "process_block": {"c1024": pb_fleet, "c10240": pb_bench},
         "seconds": time.time() - t_start}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

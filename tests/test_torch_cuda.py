@@ -177,3 +177,50 @@ def test_cuda_wrapper_rejects_cpu_mixed_inputs(smoke):
     x = torch.zeros(2, 120, 128)
     with pytest.raises(ValueError):
         ck.fft2p_planes_spliced(tail, x, 128, 128, 2)
+
+
+@pytest.mark.cuda
+def test_tea_search_matches_plain_on_card(smoke):
+    """tea_search at the deferred-decryption size (16 keys x 4096
+    payloads) and the bruteforce size (65536 keys x 256 payloads), TEA1
+    and TEA2: scores, plaintexts and best-key pairs bit-equal to the
+    plain version, spot pairs equal to TEADecryptor (phase_tea exits on
+    any difference)."""
+    rates = {"logic_per_s": 1e13, "add_per_s": 1e13}
+    res = smoke.phase_tea(seed=8, reps=2, int_rates=rates)
+    assert set(res) == {"deferred_TEA1", "deferred_TEA2",
+                        "bruteforce_TEA1", "bruteforce_TEA2"}
+    assert all(r["max_abs_err"] == 0.0 for r in res.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["TEA1", "TEA2", "TEA3"])
+def test_tea_key_search_on_card_equals_cpu(smoke, alg):
+    """The public functions on the card equal their CPU runs, and launch
+    the kernel (one search and one best-key launch; one decrypt)."""
+    import numpy as np
+    from tetraear_tpu_torch.crypto import batch as cbatch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    rng = np.random.default_rng(7)
+    payloads = rng.integers(0, 256, (33, 24), dtype=np.uint8)
+    klen = 10 if alg == "TEA1" else 16
+    keys = [bytes(rng.integers(0, 256, klen, dtype=np.uint8))
+            for _ in range(19)]
+    ck.reset_launches()
+    got = cbatch.tea_key_search(payloads, keys, alg, device="cuda")
+    plain = cbatch.tea_decrypt_batch(payloads, keys, alg, device="cuda")
+    assert ck.launches["tea_search"] == 3
+    want = cbatch.tea_key_search(payloads, keys, alg, device="cpu")
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])
+    np.testing.assert_array_equal(
+        plain, cbatch.tea_decrypt_batch(payloads, keys, alg, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_tea_wrapper_raises_on_mixed_devices(smoke):
+    from tetraear_tpu_torch.crypto import batch as cbatch
+    v = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    kw = torch.zeros(3, 4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cbatch.tea_search(v, v, kw, False)

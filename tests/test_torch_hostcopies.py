@@ -45,14 +45,22 @@ COPIES = {
     "frame/mcc_mnc.py": (),
     "frame/sdsstore.py": (),
     "crypto/tea.py": (),
+    "dsp/fm.py": (),
     "ref/modulator.py": (),
     "ref/polyphase.py": (),
     "utils/logging.py": (),
     # the scan kernel is built at first use on the port's device, and
-    # decryption is not deferred (the device key search is not ported)
+    # the deferred key search runs on that device
     "frame/batch.py": ("BatchedFrameDecoder.__init__",
                        "BatchedFrameDecoder.kernel",
                        "BatchedFrameDecoder._attach_and_decrypt"),
+    # the parent's frame layer and its key search take the device; the
+    # workers' MAC parser states travel in the port's checkpoints
+    "frame/parallel.py": ("ShardedFrameLayer.__init__",
+                          "ShardedFrameLayer._finish_block",
+                          "_worker_main",
+                          "ShardedFrameLayer.parser_states",
+                          "ShardedFrameLayer.set_parser_states"),
     # the voice codec is not ported: these raise NotImplementedError
     "ref/golden.py": ("golden_voice_iq",),
     "runtime/sources.py": ("SyntheticTetraSource._voice_bits",),
@@ -66,6 +74,12 @@ PARTS = {
     "PipelineStats": ("api.py", "api.py"),
     "_jsonable": ("api.py", "api.py"),
     "CLIListener": ("cli.py", "cli.py"),
+    "Pipeline._detect_signal": ("api.py", "api.py"),
+    "Pipeline.set_keys": ("api.py", "api.py"),
+    "Pipeline._maybe_afc_retune": ("api.py", "api.py"),
+    "Pipeline.run": ("api.py", "api.py"),
+    "Pipeline.frames": ("api.py", "api.py"),
+    "Pipeline.__del__": ("api.py", "api.py"),
 }
 
 
@@ -197,7 +211,8 @@ def test_resolve_cpu_only_when_asked():
 
 @pytest.mark.parametrize("entry", ["pipeline", "fused", "runner",
                                    "bank_state", "scan_kernel", "convert",
-                                   "cli"])
+                                   "cli", "listen", "key_search",
+                                   "sharded"])
 def test_entry_points_raise_without_a_card(entry, tmp_path):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
@@ -205,6 +220,7 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
     from tetraear_tpu_torch import convert
     from tetraear_tpu_torch.api import Pipeline, PipelineConfig
     from tetraear_tpu_torch.cli import main
+    from tetraear_tpu_torch.crypto.batch import tea_key_search
     from tetraear_tpu_torch.dsp.backhalf import FusedRx
     from tetraear_tpu_torch.dsp.framescan import FrameScanKernel
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
@@ -227,6 +243,11 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
         "cli": lambda: main(["decode", "--source",
                              str(REPO / "tests/fixtures/"
                                  "offair_2carrier.cs16")]),
+        "listen": lambda: main(["listen", "--source", "synthetic",
+                                "--max-blocks", "1"]),
+        "key_search": lambda: tea_key_search(np.zeros((2, 8), np.uint8),
+                                             [bytes(10)]),
+        "sharded": lambda: Pipeline(PipelineConfig(frame_workers=2)),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()

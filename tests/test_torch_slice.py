@@ -138,17 +138,30 @@ def test_decode_runner_batch_size_invariant(single, s):
     {"carrier_afc": True}, {"sample_rate": 2.4e6},
     {"frontend": "conv"}])
 def test_ineligible_config_raises(change):
-    """What is not ported (voice, frame workers) raises; what the fused
-    back half cannot serve takes the classic chain, for the reason the
-    JAX FusedRx gives."""
+    """What is not ported (voice) raises; frame workers build the
+    worker-sharded frame layer under the same runner; what the fused back
+    half cannot serve takes the classic chain, for the reason the JAX
+    FusedRx gives."""
     cfg = dict(sample_rate=FS, carrier_offsets_hz=(12_500.0,),
                frontend="fft", carrier_afc=False, device="cpu")
     cfg.update(change)
-    if "voice" in change or "frame_workers" in change:
+    if "voice" in change:
         with pytest.raises(ValueError):
             Pipeline(PipelineConfig(**cfg))
         return
     pipe = Pipeline(PipelineConfig(**cfg))
+    if "frame_workers" in change:
+        from tetraear_tpu_torch.frame.parallel import ShardedFrameLayer
+        try:
+            assert isinstance(pipe.batch, ShardedFrameLayer)
+            assert pipe.batch.n_workers == 2 and pipe.decoders == []
+            assert pipe.runner.batch is pipe.batch
+            assert pipe.runner.fused is not None
+            assert all(p.is_alive() for p in pipe.batch._procs)
+        finally:
+            pipe.close()
+        assert pipe.batch._procs == []
+        return
     if "sparse_hits" in change:
         assert pipe.runner.fused is not None and not pipe.runner.sparse
         return

@@ -1,23 +1,32 @@
-"""Offline decode pipeline (tetraear_tpu/api.py).
+"""Streaming and offline decode pipeline (tetraear_tpu/api.py).
 
-``Pipeline(PipelineConfig(...)).run_offline(source)`` is the port's
-entry point: the same call the JAX CLI's ``decode`` makes, for every
-receive-chain configuration the JAX ``Pipeline.run_offline`` accepts —
+``Pipeline(PipelineConfig(...))`` is the port's entry point, for every
+receive-chain configuration the JAX ``Pipeline`` accepts —
 ``frontend="conv"`` or ``"fft"``, ``carrier_afc`` on or off, any rate
 ``choose_decim`` accepts, ``sparse_hits`` on or off.  Banks the fused
 back half serves (fft frontend on a 72 kHz * 2^m rate, no AFC) take it;
 all others run the classic chain (dsp/backhalf.try_fused).  It runs on
 the card unless ``device="cpu"`` is given.
 
-Not ported yet, and raising when asked for: voice (``voice=True``), the
-sharded frame layer (``frame_workers``).  The streaming
-``process_block`` path, checkpoints and the detection gate are later
-parts of the port.
+  * ``process_block`` / ``run`` / ``frames``: the live stream, one block
+    at a time, with the detection gate, spectrum callbacks, the
+    capture-level AFC and source retune, and the raw FM hook
+    (``listen`` in the CLI);
+  * ``run_offline``: S blocks per device batch (``decode``);
+  * ``save_checkpoint`` / ``load_checkpoint``: seamless restart at a
+    block boundary, leaf for leaf compatible with the JAX package's;
+  * ``frame_workers > 0``: the per-hit frame layer sharded over worker
+    processes (frame/parallel.py);
+  * encrypted frames finish with one device key search per block
+    (crypto/batch.py).
+
+Not ported yet, and raising when asked for: voice (``voice=True``).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -34,6 +43,8 @@ from tetraear_tpu_torch.frame.structure import FrameStructureTracker
 from tetraear_tpu_torch.frame.validator import TetraSignalValidator
 from tetraear_tpu_torch.runtime.stream import DecodeRunner
 
+logger = logging.getLogger(__name__)
+
 
 @dataclass
 class PipelineConfig:
@@ -49,14 +60,30 @@ class PipelineConfig:
     expected_mcc: int | None = None
     validate: bool = True
     records_dir: str | None = None      # JSONL frame log
+    # signal-detection gate of process_block (modern.py:1993-1999)
+    detect_gate: bool = True
+    snr_threshold_db: float = 15.0
+    peak_threshold_db: float = -70.0
+    peak_avg_margin_db: float = 3.0
+    loss_hysteresis_s: float = 0.5
+    afc: bool = False                   # coarse capture-level AFC (FFT peak)
+    afc_retune_hz: float = 2000.0       # retune source when |offset| exceeds
     carrier_afc: bool = True            # per-carrier d^4 tracking loop
     frontend: str = "conv"              # "fft": wideband FFT channelizer
                                         # (the fleet-scale frontend; on a
                                         # 72 kHz-family rate with
                                         # carrier_afc off it enables the
                                         # fused back half)
+    fft_size: int = 2048                # detection gate's FFT
     voice: bool = False                 # voice chain: not ported yet
-    frame_workers: int = 0              # sharded frame layer: not ported
+    frame_workers: int = 0              # >0: shard the per-hit frame layer
+                                        # over worker processes
+                                        # (frame.parallel)
+    raw_fm: bool = False                # FM-demod raw audio monitoring
+    device_scan: bool = True            # process_block: the sync/CRC scan
+                                        # in the device block step; False
+                                        # = bank.step + the frame layer's
+                                        # own scan (batch.process)
     sparse_hits: bool = True            # fetch packed top-K hit keys
                                         # instead of the dense verdict
                                         # planes; False = the dense-plane
@@ -91,16 +118,20 @@ class PipelineStats:
 
 
 class Pipeline:
-    """Offline demod/decode engine over any IQSource."""
+    """Streaming and offline demod/decode engine over any IQSource."""
 
-    def __init__(self, config: PipelineConfig, on_frame=None):
+    def __init__(self, config: PipelineConfig, on_frame=None,
+                 on_spectrum=None, on_audio=None, on_status=None,
+                 on_raw_audio=None):
         if config.voice:
             raise ValueError("voice decode is not ported yet (voice=False)")
-        if config.frame_workers:
-            raise ValueError("the sharded frame layer is not ported yet "
-                             "(frame_workers=0)")
         self.config = config
         self.on_frame = on_frame
+        self.on_spectrum = on_spectrum
+        self.on_audio = on_audio            # voice: not ported, never fires
+        self.on_status = on_status
+        self.on_raw_audio = on_raw_audio
+        self._fm_prev = 1.0 + 0j
         self.device = resolve(config.device)
 
         # Round block length down to the demod granularity.
@@ -120,24 +151,42 @@ class Pipeline:
             frontend=config.frontend)
         self.n_carriers = self.bank.n_carriers
 
-        key_manager = None
-        if config.key_file:
-            key_manager = TetraKeyManager()
-            key_manager.load_key_file(config.key_file)
-        self.decoders = [TetraDecoder(key_manager=key_manager,
-                                      auto_decrypt=config.auto_decrypt)
-                         for _ in range(self.n_carriers)]
-        for d in self.decoders:
-            if config.keys:
-                d.set_keys(list(config.keys))
-        self.batch = BatchedFrameDecoder(self.n_carriers,
-                                         decoders=self.decoders,
-                                         device=self.device)
-        # the runner picks the back half (backhalf.try_fused)
+        if config.frame_workers > 0:
+            # per-carrier decoder state lives in the worker processes
+            from tetraear_tpu_torch.frame.parallel import ShardedFrameLayer
+            self.decoders = []
+            self.batch = ShardedFrameLayer(
+                self.n_carriers, n_workers=config.frame_workers,
+                key_file=config.key_file,
+                auto_decrypt=config.auto_decrypt, keys=config.keys,
+                device=self.device)
+        else:
+            key_manager = None
+            if config.key_file:
+                key_manager = TetraKeyManager()
+                key_manager.load_key_file(config.key_file)
+            self.decoders = [TetraDecoder(key_manager=key_manager,
+                                          auto_decrypt=config.auto_decrypt)
+                             for _ in range(self.n_carriers)]
+            for d in self.decoders:
+                if config.keys:
+                    d.set_keys(list(config.keys))
+            self.batch = BatchedFrameDecoder(self.n_carriers,
+                                             decoders=self.decoders,
+                                             device=self.device)
+        # the runner picks the back half (backhalf.try_fused); its step is
+        # process_block's device step and run_offline's batched one
+        self._device_scan = bool(config.device_scan)
         self.runner = DecodeRunner(self.bank, self.batch,
                                    device=self.device,
                                    sparse=config.sparse_hits)
-        self.state = self.runner.init_state()
+        if self._device_scan:
+            self.state = self.runner.init_state()
+        else:
+            # host-assembled split path: the bank's own state, and the
+            # frame layer drops the first differential symbol itself
+            self.state = self.bank.init_state(self.device)
+            self.batch._first = True
         self.dispatches = 0
         self.validator = (TetraSignalValidator(config.expected_mcc)
                           if config.validate else None)
@@ -145,6 +194,8 @@ class Pipeline:
         self.trackers = [FrameStructureTracker()
                          for _ in range(self.n_carriers)]
         self.stats = PipelineStats()
+        self._last_signal_t = 0.0
+        self._afc_offset = 0.0
         self._jsonl = None
         if config.records_dir:
             rec = Path(config.records_dir)
@@ -152,6 +203,103 @@ class Pipeline:
             ts = time.strftime("%Y%m%d_%H%M%S")
             self._jsonl = open(rec / f"frames_{ts}.jsonl", "a",
                                encoding="utf-8")
+
+    # -- detection gate ----------------------------------------------------
+
+    def _detect_signal(self, block: np.ndarray) -> tuple:
+        """FFT power gate with loss hysteresis (modern.py:1919-2012).
+
+        Returns (signal_present, peak_offset_hz, spectrum_db)."""
+        n = min(self.config.fft_size, len(block))
+        seg = block[:n] * np.hanning(n)
+        spec = np.fft.fftshift(np.fft.fft(seg))
+        power_db = 20 * np.log10(np.abs(spec) / n + 1e-12)
+        peak_db = float(power_db.max())
+        avg_db = float(np.mean(power_db))
+        noise_db = float(np.median(power_db))
+        snr = peak_db - noise_db
+        present = (snr > self.config.snr_threshold_db
+                   and peak_db > self.config.peak_threshold_db
+                   and peak_db - avg_db > self.config.peak_avg_margin_db)
+        now = time.time()
+        if present:
+            self._last_signal_t = now
+        elif now - self._last_signal_t < self.config.loss_hysteresis_s:
+            present = True          # hysteresis against flutter
+        peak_bin = int(np.argmax(power_db))
+        freqs = np.fft.fftshift(
+            np.fft.fftfreq(n, 1.0 / self.config.sample_rate))
+        return present, float(freqs[peak_bin]), power_db
+
+    def set_keys(self, hex_keys) -> None:
+        """Runtime key load across the whole frame layer (the reference
+        control panel's Load-Keys button feeding TetraDecoder.set_keys,
+        modern.py:2817-3167 / decoder.py:101): host per-carrier decoders
+        when they exist, the sharded worker fleet otherwise."""
+        keys = [str(k).strip() for k in hex_keys if str(k).strip()]
+        for d in self.decoders:
+            d.set_keys(keys)
+        if not self.decoders and hasattr(self.batch, "set_keys"):
+            self.batch.set_keys(keys)
+
+    # -- block processing --------------------------------------------------
+
+    def process_block(self, block: np.ndarray) -> list:
+        """Feed one IQ block; returns the list of decoded frame dicts.
+
+        The device step is the runner's (``DecodeRunner.step``: the fused
+        step or the classic chain with its carried bit tail, then the
+        sparse or dense scan outputs), the same one ``run_offline``
+        chains, so both give the same frames for the same capture.  With
+        ``device_scan=False`` the bank's block step runs and the frame
+        layer scans the assembled rows itself (``batch.process``)."""
+        block = np.asarray(block, np.complex64)
+        if len(block) < self.block_len:
+            return []
+        block = block[:self.block_len]
+        self.stats.blocks += 1
+        self.stats.samples += len(block)
+
+        if self.config.detect_gate or self.on_spectrum or self.config.afc:
+            present, peak_off, spectrum = self._detect_signal(block)
+            self.stats.signal_present = present
+            if self.on_spectrum:
+                self.on_spectrum(spectrum)
+            if self.config.detect_gate and not present:
+                if self.on_status:
+                    self.on_status("no signal")
+                return []
+            if self.config.afc:
+                # smoothed AFC: 10% of the offset per step, +-10 kHz window
+                # (modern.py:5135-5169)
+                if abs(peak_off) < 10_000:
+                    self._afc_offset += 0.1 * (peak_off - self._afc_offset)
+                self.stats.afc_offset_hz = self._afc_offset
+
+        if self.config.raw_fm and self.on_raw_audio is not None:
+            # FM-demod raw monitoring path (modern.py:2040-2061)
+            from tetraear_tpu_torch.dsp import fm
+            audio, self._fm_prev = fm.fm_demod(block, self._fm_prev)
+            self.on_raw_audio(audio)
+
+        if self._device_scan:
+            runner = self.runner
+            ys, self.state = runner.step(runner.ingest(block[None])[0],
+                                         self.state)
+            frames_out = runner.frames_of(
+                tuple(t.cpu().numpy() for t in ys))
+        else:
+            out, self.state = self.bank.step(block, self.state)
+            frames_out = self.batch.process(out["hard"].cpu().numpy(),
+                                            None,
+                                            out["valid"].cpu().numpy())
+        for f in frames_out:
+            ci = f["carrier"]
+            f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
+            f["frequency"] = self.config.frequency + float(
+                self.bank.freqs_hz[ci])
+            self._handle_frame(f)
+        return frames_out
 
     def _handle_frame(self, frame: dict) -> None:
         ci = frame.get("carrier", 0)
@@ -187,6 +335,69 @@ class Pipeline:
             self._jsonl.flush()
         if self.on_frame:
             self.on_frame(frame)
+
+    def _maybe_afc_retune(self, source) -> None:
+        """Apply the smoothed capture-level AFC offset by retuning the
+        source, the way the reference applies its GUI AFC to the tuner
+        (modern.py:5135-5169).  Only fires past ``afc_retune_hz`` so the
+        per-carrier d^4 loops absorb small residuals; after a retune the
+        carrier loops re-lock (same transient as a reference retune)."""
+        if not self.config.afc or abs(self._afc_offset) \
+                < self.config.afc_retune_hz:
+            return
+        if not hasattr(source, "set_frequency"):
+            return
+        new_freq = self.config.frequency + self._afc_offset
+        logger.info("AFC retune: %+.0f Hz -> %.6f MHz",
+                    self._afc_offset, new_freq / 1e6)
+        source.set_frequency(new_freq)
+        self.config.frequency = new_freq
+        self._afc_offset = 0.0
+        self.stats.afc_offset_hz = 0.0
+        if self.on_status:
+            self.on_status(f"afc retune {new_freq / 1e6:.6f} MHz")
+
+    # -- run loops ---------------------------------------------------------
+
+    def run(self, source, max_blocks: int | None = None) -> PipelineStats:
+        """Consume a source until EOF/max_blocks; callbacks fire per event.
+
+        A final partial block at EOF is zero-padded so the tail of a
+        capture file still decodes (frames inside the padding region fail
+        CRC and are filtered normally)."""
+        with source:
+            n = 0
+            while max_blocks is None or n < max_blocks:
+                block = source.read_samples(self.block_len)
+                if len(block) < self.block_len:
+                    if len(block) > self.block_len // 8:
+                        pad = np.zeros(self.block_len - len(block),
+                                       np.complex64)
+                        self.process_block(np.concatenate([block, pad]))
+                    break
+                self.process_block(block)
+                self._maybe_afc_retune(source)
+                n += 1
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None
+        return self.stats
+
+    def close(self) -> None:
+        """Release held resources: the JSONL sink and the worker-sharded
+        frame layer (idempotent; also run by __del__)."""
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None
+        closer = getattr(self.batch, "close", None)
+        if closer is not None:
+            closer()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def run_offline(self, source, blocks_per_dispatch: int = 16,
                     max_blocks: int | None = None) -> PipelineStats:
@@ -227,13 +438,108 @@ class Pipeline:
                 if len(chunk) < want:
                     break
         self.dispatches = runner.dispatches
-        self.close()
-        return self.stats
-
-    def close(self) -> None:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+        return self.stats
+
+    def frames(self, source, max_blocks: int | None = None):
+        """Generator yielding frames as they decode (FrameStream)."""
+        with source:
+            n = 0
+            while max_blocks is None or n < max_blocks:
+                block = source.read_samples(self.block_len)
+                if len(block) < self.block_len:
+                    break
+                yield from self.process_block(block)
+                n += 1
+
+    # -- checkpoint --------------------------------------------------------
+
+    def save_checkpoint(self, path) -> None:
+        """SEAMLESS checkpoint: DSP state, frame-layer stream positions
+        AND alignment tails, the classic chain's device bit tail (the
+        fused path carries its own in the state) and each carrier's MAC
+        parser state (``parsers``: network identity and the open fragment
+        chain, which the JAX package's checkpoint drops, so that a chain
+        straddling the restart loses its reassembled text there).  A
+        kill/restore across a block boundary reproduces the uninterrupted
+        run's frames.  The layout is the JAX package's
+        (runtime/checkpoint.py), so either package restores the other's
+        file (the JAX package ignores ``parsers``; its files restore
+        fresh parsers); the voice decoder states have their slots (aux
+        ``vhost`` / ``vdev_*``) once voice is ported."""
+        from tetraear_tpu_torch.runtime import checkpoint
+        layer = self._tails_layer()
+        extra = {
+            "sym_base": self.batch._sym_base.tolist(),
+            "emitted_until": self.batch._emitted_until.tolist(),
+            "stats": self.stats.as_dict(),
+            "fm_prev": [float(np.real(self._fm_prev)),
+                        float(np.imag(self._fm_prev))],
+            "afc_offset": float(self._afc_offset),
+            "batch_first": bool(getattr(self.batch, "_first", False)),
+            "trackers": [t.slot_counter for t in self.trackers],
+            "parsers": {str(ci): st
+                        for ci, st in self._parser_states().items()},
+        }
+        aux = {}
+        if self.runner._tail_bits is not None:
+            aux["tail_bits"] = self.runner._tail_bits.cpu().numpy()
+        for name in ("_tail_hard", "_tail_soft", "_tail_valid"):
+            aux["batch" + name] = np.asarray(getattr(layer, name))
+        checkpoint.save_state(path, self.state, extra=extra, aux=aux)
+
+    def load_checkpoint(self, path) -> None:
+        """Restore a checkpoint of this package or of the JAX package
+        (same configuration) into this Pipeline."""
+        import torch
+        from tetraear_tpu_torch.runtime import checkpoint
+        leaves, extra, aux = checkpoint.load_state(path)
+        self.state = checkpoint.restore_into(
+            self.state, leaves, saved_treedef=extra.get("__treedef__"))
+        if "sym_base" in extra:
+            self.batch._sym_base = np.asarray(extra["sym_base"], np.int64)
+        if "emitted_until" in extra:
+            self.batch._emitted_until = np.asarray(
+                extra["emitted_until"], np.int64)
+        if "fm_prev" in extra:
+            self._fm_prev = complex(*extra["fm_prev"])
+        if "afc_offset" in extra:
+            self._afc_offset = float(extra["afc_offset"])
+        for t, cnt in zip(self.trackers, extra.get("trackers", [])):
+            t.slot_counter = int(cnt)
+        parsers = {int(ci): st for ci, st in extra.get("parsers", {}).items()}
+        if self.decoders:
+            for ci, st in parsers.items():
+                checkpoint.restore_parser(self.decoders[ci].protocol_parser,
+                                          st)
+        else:
+            self.batch.set_parser_states(parsers)
+        if "tail_bits" in aux:
+            self.runner._tail_bits = torch.from_numpy(
+                np.array(aux["tail_bits"], np.uint8)).to(self.device)
+        layer = self._tails_layer()
+        for name in ("_tail_hard", "_tail_soft", "_tail_valid"):
+            if "batch" + name in aux:
+                setattr(layer, name, np.array(aux["batch" + name]))
+        self.batch._first = bool(extra.get("batch_first", False))
+
+    def _parser_states(self) -> dict:
+        """{carrier: MAC parser state} of the frame layer's decoders, in
+        this process or in the workers (runtime.checkpoint.parser_state);
+        carriers whose parser is in its initial state are left out."""
+        from tetraear_tpu_torch.runtime import checkpoint
+        if not self.decoders:
+            return self.batch.parser_states()
+        states = {ci: checkpoint.parser_state(d.protocol_parser)
+                  for ci, d in enumerate(self.decoders)}
+        return {ci: st for ci, st in states.items() if st is not None}
+
+    def _tails_layer(self):
+        """The layer holding the host alignment tails: the in-process
+        layer, or the parent-side one inside the sharded layer."""
+        return getattr(self.batch, "_inner", self.batch)
 
 
 def _jsonable(frame: dict) -> dict:

@@ -1,11 +1,16 @@
-"""Command-line interface of the port: the offline ``decode`` command.
+"""Command-line interface of the port: ``listen`` and ``decode``.
 
+    python -m tetraear_tpu_torch listen --source synthetic --max-blocks 4
     python -m tetraear_tpu_torch decode --source capture.cs16 -s 2.4 \\
         --offsets 12500,-287500
 
-decodes a capture file (the JAX package's ``decode`` with its options
-for the receive chain) and prints each frame and a JSON summary.  It
-runs on the card unless ``--device cpu`` is given.
+``listen`` streams a source block by block through
+``Pipeline.run`` / ``process_block`` (the JAX CLI's default command, the
+CLI listener of modern.py:5334-5405); ``decode`` decodes a capture file
+S blocks per device batch (``Pipeline.run_offline``).  Both print each
+frame and a JSON summary, take the receive-chain options and
+``--frame-workers``, and run on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -70,61 +75,17 @@ class CLIListener:
         print(f"{C_DIM}[status] {status}{C_RESET}", file=sys.stderr)
 
 
-def cmd_decode_file(args) -> int:
-    """Offline decode of a recorded capture -> frames on stdout/JSONL,
-    S blocks per device batch (Pipeline.run_offline)."""
-    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
-    from tetraear_tpu_torch.runtime.sources import open_source
-
-    if getattr(args, "verbose", False):
-        from tetraear_tpu_torch.utils.logging import setup_logging
-        setup_logging(True)
-    listener = CLIListener(show_invalid=args.show_invalid)
-    offsets = tuple(float(o) for o in str(args.offsets).split(","))
-    cfg = PipelineConfig(
-        sample_rate=args.sample_rate * 1e6,
-        frequency=args.frequency * 1e6,
-        carrier_offsets_hz=offsets,
-        auto_decrypt=args.auto_decrypt,
-        key_file=args.keys,
-        records_dir=args.records_dir,
-        expected_mcc=args.expected_mcc,
-        frontend=args.frontend,
-        carrier_afc=args.carrier_afc,
-        sparse_hits=args.sparse_hits,
-        frame_workers=args.frame_workers,
-        device=args.device,
-    )
-    pipe = Pipeline(cfg, on_frame=listener.on_frame)
-    src = open_source(args.source, sample_rate=args.sample_rate * 1e6,
-                      frequency=args.frequency * 1e6, gain=args.gain)
-    stats = pipe.run_offline(src, blocks_per_dispatch=args.dispatch_blocks,
-                             max_blocks=args.max_blocks)
-    summary = stats.as_dict()
-    summary["device"] = str(pipe.device)
-    summary["backhalf"] = pipe.runner._backhalf_reason
-    summary["device_dispatches"] = pipe.dispatches
-    summary["activity"] = pipe.aggregator.snapshot()
-    summary["tdma"] = [t.stats() for t in pipe.trackers if t.slot_counter]
-    print(json.dumps(summary, indent=2, default=str))
-    return 0
-
-
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        prog="tetraear_tpu_torch",
-        description="TETRA receive chain on PyTorch + CUDA")
-    sub = parser.add_subparsers(dest="command")
-    p = sub.add_parser("decode", help="offline decode of a capture file")
+def _add_common(p: argparse.ArgumentParser, source_default) -> None:
     p.add_argument("-f", "--frequency", type=float, default=392.5,
                    help="centre frequency in MHz (default 392.5)")
     p.add_argument("-s", "--sample-rate", type=float, default=2.4,
                    help="sample rate in Msps (default 2.4)")
     p.add_argument("-g", "--gain", default="auto",
                    help="SDR gain ('auto' or dB)")
-    p.add_argument("--source", required=True,
-                   help="IQ source: 'synthetic[:off1,...]' or a capture "
-                        "file path")
+    p.add_argument("--source", default=source_default,
+                   required=source_default is None,
+                   help="IQ source: 'rtlsdr', 'synthetic[:off1,...]' or a "
+                        "capture file path")
     p.add_argument("--offsets", default="0",
                    help="comma-separated carrier offsets in Hz to "
                         "demodulate (default: 0 = centre channel)")
@@ -149,19 +110,108 @@ def main(argv=None) -> int:
     p.add_argument("--expected-mcc", type=int,
                    help="expected country MCC for validation (e.g. 260)")
     p.add_argument("--frame-workers", type=int, default=0,
-                   help="worker processes of the frame layer (not ported "
-                        "yet: 0 only)")
-    p.add_argument("--dispatch-blocks", type=int, default=16,
-                   help="blocks per device batch (default 16)")
+                   help="shard the per-hit frame layer over N worker "
+                        "processes (0 = in-process)")
     p.add_argument("--max-blocks", type=int,
                    help="stop after N blocks (default: run to EOF)")
     p.add_argument("--show-invalid", action="store_true")
     p.add_argument("-v", "--verbose", action="store_true")
+
+
+def _make_pipeline(args, on_frame=None, on_status=None):
+    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    offsets = tuple(float(o) for o in str(args.offsets).split(","))
+    cfg = PipelineConfig(
+        sample_rate=args.sample_rate * 1e6,
+        frequency=args.frequency * 1e6,
+        carrier_offsets_hz=offsets,
+        auto_decrypt=args.auto_decrypt,
+        key_file=args.keys,
+        records_dir=args.records_dir,
+        expected_mcc=args.expected_mcc,
+        detect_gate=args.source == "rtlsdr",
+        frontend=args.frontend,
+        carrier_afc=args.carrier_afc,
+        sparse_hits=args.sparse_hits,
+        frame_workers=args.frame_workers,
+        device=args.device,
+    )
+    return Pipeline(cfg, on_frame=on_frame, on_status=on_status)
+
+
+def _open_source(args):
+    from tetraear_tpu_torch.runtime.sources import open_source
+    return open_source(args.source, sample_rate=args.sample_rate * 1e6,
+                       frequency=args.frequency * 1e6, gain=args.gain)
+
+
+def _summary(pipe, stats) -> dict:
+    summary = stats.as_dict()
+    summary["device"] = str(pipe.device)
+    summary["backhalf"] = pipe.runner._backhalf_reason
+    summary["activity"] = pipe.aggregator.snapshot()
+    summary["tdma"] = [t.stats() for t in pipe.trackers if t.slot_counter]
+    return summary
+
+
+def cmd_listen(args) -> int:
+    """Stream a source block by block (Pipeline.run -> process_block)."""
+    listener = CLIListener(show_invalid=args.show_invalid)
+    pipe = _make_pipeline(args, on_frame=listener.on_frame,
+                          on_status=listener.on_status)
+    try:
+        src = _open_source(args)
+        print(f"Listening on {args.frequency:.4f} MHz "
+              f"({len(pipe.bank.freqs_hz)} carrier(s), "
+              f"source={args.source}) — Ctrl-C to stop")
+        try:
+            stats = pipe.run(src, max_blocks=args.max_blocks)
+        except KeyboardInterrupt:
+            stats = pipe.stats
+            print("\nstopped")
+        print(json.dumps(_summary(pipe, stats), indent=2, default=str))
+    finally:
+        pipe.close()
+    return 0
+
+
+def cmd_decode_file(args) -> int:
+    """Offline decode of a recorded capture -> frames on stdout/JSONL,
+    S blocks per device batch (Pipeline.run_offline)."""
+    listener = CLIListener(show_invalid=args.show_invalid)
+    pipe = _make_pipeline(args, on_frame=listener.on_frame)
+    try:
+        stats = pipe.run_offline(_open_source(args),
+                                 blocks_per_dispatch=args.dispatch_blocks,
+                                 max_blocks=args.max_blocks)
+        summary = _summary(pipe, stats)
+        summary["device_dispatches"] = pipe.dispatches
+        print(json.dumps(summary, indent=2, default=str))
+    finally:
+        pipe.close()
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="tetraear_tpu_torch",
+        description="TETRA receive chain on PyTorch + CUDA")
+    sub = parser.add_subparsers(dest="command")
+    p = sub.add_parser("listen", help="realtime/headless listener")
+    _add_common(p, "rtlsdr")
+    p.set_defaults(func=cmd_listen)
+    p = sub.add_parser("decode", help="offline decode of a capture file")
+    _add_common(p, None)
+    p.add_argument("--dispatch-blocks", type=int, default=16,
+                   help="blocks per device batch (default 16)")
     p.set_defaults(func=cmd_decode_file)
     args = parser.parse_args(argv)
     if not getattr(args, "func", None):
         parser.print_help()
         return 2
+    if getattr(args, "verbose", False):
+        from tetraear_tpu_torch.utils.logging import setup_logging
+        setup_logging(True)
     return args.func(args)
 
 

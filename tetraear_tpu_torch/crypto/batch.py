@@ -1,0 +1,345 @@
+"""Batched TEA key search on the card (tetraear_tpu/crypto/batch.py).
+
+The reference tries ~40 keys per encrypted frame in a Python loop
+(tetraear/core/decoder.py:683-783).  Here the whole keys x payloads
+product is one launch of the hand-written ``tea_search`` kernel
+(dsp/csrc/tea.cu): one thread per (key, payload) pair, the decrypt rounds
+and the plaintext score in registers, so a fleet bruteforces every
+encrypted frame of a block without a Python loop over keys.
+
+Semantics are identical to ``crypto.tea`` (itself bit-exact vs the
+reference ciphers) and to the JAX package's functions of the same names.
+The host helpers (key and payload word packing, the key plan and
+selection loop of ``batch_decrypt_frames``) keep the original's code.
+
+Each public function takes ``device`` (``None``: the card; ``"cpu"``
+runs the kernels' plain versions).  The JAX functions' ``mesh=`` /
+``axis=`` payload sharding is not ported yet: it comes with the
+multi-GPU slice (ROADMAP.md, modules still to port, item 5), so these
+functions take no such argument.
+
+Kernel wrappers (``tea_decrypt``, ``tea_search``, ``tea_decrypt_pairs``)
+follow ``dsp/cuda_kernels``' dispatch rule: CPU tensors run the plain
+version (int64 tensors, every addition, subtraction and left shift
+masked to 32 bits), CUDA tensors launch the kernel or raise.  Each
+launch adds one to ``cuda_kernels.launches["tea_search"]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tetraear_tpu_torch.device import resolve
+from tetraear_tpu_torch.dsp import cuda_kernels as ck
+
+_DELTA = np.uint32(0x9E3779B9)
+_SUM0 = np.uint32((0x9E3779B9 * 32) & 0xFFFFFFFF)
+_M32 = 0xFFFFFFFF
+# first plaintext bytes of a structured TETRA PDU (_score_bytes)
+_TETRA_FIRST = (0x01, 0x02, 0x03, 0x04, 0x05, 0x08, 0x0A, 0x0C, 0x82, 0x83,
+                0x07)
+
+
+def _keys_to_words_tea1(keys: np.ndarray) -> np.ndarray:
+    """(K, 10) key bytes -> (K, 5) big-endian uint16 words (as uint32)."""
+    k = np.asarray(keys, np.uint8).reshape(-1, 10)
+    words = (k[:, 0::2].astype(np.uint32) << 8) | k[:, 1::2]
+    return words
+
+
+def _keys_to_words_tea2(keys: np.ndarray) -> np.ndarray:
+    """(K, 16) key bytes -> (K, 4) big-endian uint32 words."""
+    k = np.asarray(keys, np.uint8).reshape(-1, 16)
+    w = (k[:, 0::4].astype(np.uint32) << 24) \
+        | (k[:, 1::4].astype(np.uint32) << 16) \
+        | (k[:, 2::4].astype(np.uint32) << 8) \
+        | k[:, 3::4].astype(np.uint32)
+    return w
+
+
+def _payload_to_words(payloads: np.ndarray) -> tuple:
+    """(B, L) bytes (L % 8 == 0) -> (v0, v1) each (B, L//8) uint32."""
+    p = np.asarray(payloads, np.uint8)
+    b, length = p.shape
+    if length % 8:
+        raise ValueError("payload length must be a multiple of 8")
+    w = p.reshape(b, length // 8, 2, 4)
+    v = ((w[..., 0].astype(np.uint32) << 24)
+         | (w[..., 1].astype(np.uint32) << 16)
+         | (w[..., 2].astype(np.uint32) << 8)
+         | w[..., 3].astype(np.uint32))
+    return v[:, :, 0], v[:, :, 1]
+
+
+# ---------------------------------------------------------------------------
+# the kernel: decrypt rounds + plaintext score
+# ---------------------------------------------------------------------------
+
+def _rounds_plain(v0, v1, k, tea1: bool) -> tuple:
+    """32 decrypt rounds on int64 words in [0, 2^32); ``k`` holds the four
+    key-word columns, each broadcastable against v0 / v1."""
+    s = int(_SUM0)
+    m = _M32
+    for _ in range(32):
+        if tea1:
+            f = ((((v0 << 4) & m) ^ (v0 >> 5) ^ s) + v0) & m
+            v1 = (v1 - (f ^ ((k[(s >> 11) & 3] + s) & m))) & m
+            s = (s - int(_DELTA)) & m
+            f = ((((v1 << 4) & m) ^ (v1 >> 5) ^ s) + v1) & m
+            v0 = (v0 - (f ^ ((k[s & 3] + s) & m))) & m
+        else:
+            f = ((((v0 << 4) & m) + k[2]) & m) ^ ((v0 + s) & m) \
+                ^ (((v0 >> 5) + k[3]) & m)
+            v1 = (v1 - f) & m
+            s = (s - int(_DELTA)) & m
+            f = ((((v1 << 4) & m) + k[0]) & m) ^ ((v1 + s) & m) \
+                ^ (((v1 >> 5) + k[1]) & m)
+            v0 = (v0 - f) & m
+    return v0, v1
+
+
+def _words_to_bytes(p0, p1) -> torch.Tensor:
+    """(..., W) int64 word pairs -> (..., W*8) uint8, big-endian."""
+    shifts = torch.tensor([24, 16, 8, 0], device=p0.device)
+    b = torch.cat([(p0[..., None] >> shifts) & 0xFF,
+                   (p1[..., None] >> shifts) & 0xFF], dim=-1)
+    return b.reshape(*b.shape[:-2], -1).to(torch.uint8)
+
+
+def _score_bytes(plain: torch.Tensor) -> torch.Tensor:
+    """(K, B, L) plaintext bytes -> (K, B) int32 plausibility score
+    (the reference's printable-ASCII density, non-degenerate bytes and
+    structured-header bonus; the JAX _score_bytes)."""
+    p = plain.to(torch.int32)
+    printable = ((p >= 32) & (p <= 126)).to(torch.int32)
+    score = 2 * printable.sum(dim=-1, dtype=torch.int32)
+    nonzero = (p != 0).any(dim=-1)
+    nonff = (p != 0xFF).any(dim=-1)
+    score = score + torch.where(nonzero & nonff, 30, -50)
+    first = p[..., 0]
+    score = score + torch.where((first != 0) & (first != 0xFF), 10, 0)
+    tetra = torch.zeros_like(first, dtype=torch.bool)
+    for v in _TETRA_FIRST:
+        tetra |= first == v
+    score = score + torch.where(tetra, 20, 0)
+    return score.to(torch.int32)
+
+
+def _key_cols(key_words: torch.Tensor, shape: tuple) -> list:
+    kw = key_words.to(torch.int64) & _M32
+    return [kw[:, j].reshape(shape) for j in range(4)]
+
+
+def tea_decrypt_plain(v0, v1, key_words, tea1: bool) -> torch.Tensor:
+    """Plain version of tea_decrypt."""
+    k = _key_cols(key_words, (-1, 1, 1))
+    p0, p1 = _rounds_plain(v0.to(torch.int64)[None] & _M32,
+                           v1.to(torch.int64)[None] & _M32, k, tea1)
+    return _words_to_bytes(p0, p1)
+
+
+def tea_search_plain(v0, v1, key_words, tea1: bool) -> torch.Tensor:
+    """Plain version of tea_search."""
+    return _score_bytes(tea_decrypt_plain(v0, v1, key_words, tea1))
+
+
+def tea_decrypt_pairs_plain(v0, v1, key_words, tea1: bool) -> torch.Tensor:
+    """Plain version of tea_decrypt_pairs."""
+    k = _key_cols(key_words, (-1, 1))
+    p0, p1 = _rounds_plain(v0.to(torch.int64) & _M32,
+                           v1.to(torch.int64) & _M32, k, tea1)
+    return _words_to_bytes(p0, p1)
+
+
+def _tea_launch(mode: int, v0, v1, key_words, tea1: bool, pairs: bool):
+    b = v0.shape[0] if v0.dim() == 2 else -1
+    w = v0.shape[1] if v0.dim() == 2 else -1
+    n_kw = 5 if tea1 else 4
+    k = key_words.shape[0] if key_words.dim() == 2 else -1
+    ck._check(v0, "v0", (b, w), torch.int32)
+    ck._check(v1, "v1", (b, w), torch.int32)
+    ck._check(key_words, "key_words", (b if pairs else k, n_kw), torch.int32)
+    if w < 1 or b < 1 or k < 1:
+        raise ValueError(f"tea_search: {k} keys, {b} payloads of {w} "
+                         "blocks")
+    if ck._route(v0, v1, key_words) == "cpu":
+        return None
+    dev = v0.device
+    lib = ck.build()
+    if mode == 1:
+        out = torch.empty((k, b), dtype=torch.int32, device=dev)
+    elif pairs:
+        out = torch.empty((b, 8 * w), dtype=torch.uint8, device=dev)
+    else:
+        out = torch.empty((k, b, 8 * w), dtype=torch.uint8, device=dev)
+    ck._launch("tea_search", dev, lib.tt_tea, mode, int(tea1), ck._ptr(v0),
+               ck._ptr(v1), ck._ptr(key_words), n_kw, k, b, w, ck._ptr(out))
+    return out
+
+
+def tea_decrypt(v0: torch.Tensor, v1: torch.Tensor, key_words: torch.Tensor,
+                tea1: bool) -> torch.Tensor:
+    """Every key against every payload: (B, W) int32 word pairs (uint32
+    bit patterns) and (K, 5 or 4) int32 key words -> (K, B, 8W) uint8
+    plaintexts, each bit-exact vs crypto.tea.TEADecryptor.decrypt (ECB).
+
+    Replaces the reference's ``_decrypt_impl`` (XLA rounds over a
+    (K, B, W) uint32 grid).  Bound: integer operations (about 450 a
+    block).  Design: csrc/tea.cu, one thread a pair, rounds unrolled with
+    their constants folded, bytes stored as 8-byte words."""
+    out = _tea_launch(0, v0, v1, key_words, tea1, pairs=False)
+    return tea_decrypt_plain(v0, v1, key_words, tea1) if out is None else out
+
+
+def tea_search(v0: torch.Tensor, v1: torch.Tensor, key_words: torch.Tensor,
+               tea1: bool) -> torch.Tensor:
+    """Every key against every payload -> (K, B) int32 plaintext scores
+    (the reference's ``_score_bytes``), the plaintext kept in registers.
+    Same kernel and bound as tea_decrypt; 4 bytes out a pair."""
+    out = _tea_launch(1, v0, v1, key_words, tea1, pairs=False)
+    return tea_search_plain(v0, v1, key_words, tea1) if out is None else out
+
+
+def tea_decrypt_pairs(v0: torch.Tensor, v1: torch.Tensor,
+                      key_words: torch.Tensor, tea1: bool) -> torch.Tensor:
+    """Payload b decrypted with key b: (B, W) word pairs and (B, 5 or 4)
+    key words -> (B, 8W) uint8.  Same kernel as tea_decrypt."""
+    out = _tea_launch(2, v0, v1, key_words, tea1, pairs=True)
+    return (tea_decrypt_pairs_plain(v0, v1, key_words, tea1) if out is None
+            else out)
+
+
+# ---------------------------------------------------------------------------
+# public functions (the JAX package's)
+# ---------------------------------------------------------------------------
+
+def _device_words(payloads, keys, algorithm: str, device) -> tuple:
+    """(v0, v1, key words, tea1, B) as int32 tensors on the device."""
+    payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
+    if isinstance(keys, (list, tuple)):
+        keys = np.stack([np.frombuffer(bytes(k), np.uint8) for k in keys])
+    tea1 = algorithm.upper() == "TEA1"
+    kw = _keys_to_words_tea1(keys) if tea1 else _keys_to_words_tea2(keys)
+    v0, v1 = _payload_to_words(payloads)
+    dev = resolve(device)
+
+    def t(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a, np.uint32).view(np.int32)).to(dev)
+
+    return t(v0), t(v1), t(kw), tea1, payloads.shape[0]
+
+
+def tea_decrypt_batch(payloads, keys, algorithm: str = "TEA1",
+                      device=None) -> np.ndarray:
+    """Decrypt every payload with every key on the device.
+
+    payloads: (B, L) uint8 (L % 8 == 0); keys: list/array of key bytes.
+    Returns (K, B, L) uint8 plaintexts — bit-exact vs
+    crypto.tea.TEADecryptor.decrypt (ECB) for each (key, payload) pair.
+    """
+    v0, v1, kw, tea1, _ = _device_words(payloads, keys, algorithm, device)
+    return tea_decrypt(v0, v1, kw, tea1).cpu().numpy()
+
+
+def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
+    """Finish deferred decryption for a block's frames with ONE device
+    keys x payloads search per cipher family.
+
+    Each frame's key plan and selection loop are EXACTLY the host
+    _decrypt_frame path (frame.decoder._build_key_plan /
+    _select_decrypt); only the TEA rounds move to the device.  Payloads
+    are zero-padded to a common width — harmless for ECB, each frame's
+    plaintext is truncated back to its own length.
+    """
+    pending = []
+    for f in frames:
+        if not f.pop("decryption_pending", False):
+            continue
+        dec = decoders[f.get("carrier", 0)]
+        plan = dec._build_key_plan(f)
+        if plan is None:
+            continue
+        pending.append((f, dec, plan))
+    if not pending:
+        return
+    if len(pending) == 1:
+        # a lone frame is cheaper on the host than one device round trip
+        f, dec, (payload, keys_to_try) = pending[0]
+        dec._select_decrypt(f, payload, keys_to_try)
+        dec._post_decrypt_sds(f)
+        return
+
+    # collect unique keys per cipher family (TEA1 10-byte; TEA2/3/4
+    # share the classic-TEA structure, crypto.tea semantics)
+    fam_keys = {"TEA1": [], "TEA2": []}
+    fam_index = {"TEA1": {}, "TEA2": {}}
+    max_len = 0
+    for _, _, (payload, keys_to_try) in pending:
+        max_len = max(max_len, len(payload))
+        for key, _desc, alg in keys_to_try:
+            if key is None:
+                continue
+            fam = "TEA1" if alg == "TEA1" else "TEA2"
+            want = 10 if fam == "TEA1" else 16
+            if len(key) != want:
+                continue               # host loop would raise+skip too
+            if key not in fam_index[fam]:
+                fam_index[fam][key] = len(fam_keys[fam])
+                fam_keys[fam].append(key)
+
+    payload_mat = np.zeros((len(pending), max_len), np.uint8)
+    for bi, (_, _, (payload, _)) in enumerate(pending):
+        payload_mat[bi, :len(payload)] = np.frombuffer(payload, np.uint8)
+
+    plains = {}
+    for fam in ("TEA1", "TEA2"):
+        if fam_keys[fam]:
+            plains[fam] = tea_decrypt_batch(payload_mat, fam_keys[fam],
+                                            fam, device=device)
+
+    for bi, (f, dec, (payload, keys_to_try)) in enumerate(pending):
+
+        def plaintext_at(i, _bi=bi, _payload=payload,
+                         _keys=keys_to_try):
+            key, _desc, alg = _keys[i]
+            fam = "TEA1" if alg == "TEA1" else "TEA2"
+            ki = fam_index[fam].get(key)
+            if ki is None:             # invalid combo: host semantics
+                from tetraear_tpu_torch.crypto.tea import TEADecryptor
+                return TEADecryptor(key, alg).decrypt(_payload)
+            return plains[fam][ki, _bi, :len(_payload)].tobytes()
+
+        dec._select_decrypt(f, payload, keys_to_try, plaintext_at)
+        dec._post_decrypt_sds(f)
+
+
+def tea_key_search(payloads, keys, algorithm: str = "TEA1",
+                   device=None) -> dict:
+    """Try every key against every payload on the device.
+
+    Args:
+        payloads: (B, L) uint8 ciphertext rows, L % 8 == 0 (pad first).
+        keys: list of key byte strings (10 bytes for TEA1, 16 for
+            TEA2/3/4), or an (K, key_len) uint8 array.
+        algorithm: 'TEA1' or 'TEA2'/'TEA3'/'TEA4' (aliases, crypto.py
+            semantics).
+
+    Returns dict with:
+        scores (K, B) int32, best_key_index (B,) int32 (the first
+        maximum over keys, as ``jnp.argmax``), best_score (B,) int32,
+        plaintexts (B, L) uint8 — each payload decrypted with its best
+        key (a second launch over the B (best key, payload) pairs).
+    """
+    v0, v1, kw, tea1, _ = _device_words(payloads, keys, algorithm, device)
+    scores = tea_search(v0, v1, kw, tea1)
+    best_score, _ = scores.max(dim=0)
+    best_key = torch.argmax(scores, dim=0)
+    plain = tea_decrypt_pairs(v0, v1, kw[best_key].contiguous(), tea1)
+    return {
+        "scores": scores.cpu().numpy(),
+        "best_key_index": best_key.to(torch.int32).cpu().numpy(),
+        "best_score": best_score.cpu().numpy(),
+        "plaintexts": plain.cpu().numpy(),
+    }

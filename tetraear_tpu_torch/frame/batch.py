@@ -313,10 +313,12 @@ class BatchedFrameDecoder:
         self.decoders = decoders if decoders is not None else [
             TetraDecoder(key_manager=key_manager, auto_decrypt=auto_decrypt)
             for _ in range(n_carriers)]
-        # decryption is NOT deferred here: an encrypted frame is
-        # decrypted on the host by TetraDecoder itself (crypto/tea.py).
-        # The JAX package defers it to one device keys x frames search
-        # per block (crypto.batch), which is not ported yet.
+        if isinstance(self.decoders, list):
+            for d in self.decoders:
+                # decryption is deferred per block and finished with one
+                # device keys x frames search (crypto.batch); lazy maps
+                # (frame.parallel._LazyDecoders) set the flag themselves
+                d.defer_decrypt = True
         self.T = int(tail_syms)
         # even-position scan: frame starts are symbol-aligned in the
         # assembled rows (all carries/drops move whole symbols), so odd
@@ -324,7 +326,8 @@ class BatchedFrameDecoder:
         # .frame_scan_packed_even).  scan_stride maps device array
         # indices to bit positions.  The standalone scan kernel of
         # ``process`` is built at first use, on ``device`` (None: the
-        # card); the scanned entry points never need it.
+        # card); the scanned entry points never need it.  The deferred
+        # key search runs on ``device`` too.
         self.scan_stride = 2
         self._device = device
         self._kernel = None
@@ -414,9 +417,8 @@ class BatchedFrameDecoder:
 
     def _attach_and_decrypt(self, frames_out: list, softs) -> list:
         """Shared epilogue of both selection paths: attach per-frame
-        soft-symbol slices.  Deferred decryption (one device keys x
-        payloads search for the whole block) is not ported: no decoder
-        built here defers, and a frame that arrives pending raises."""
+        soft-symbol slices, finish deferred decryption with one device
+        keys x payloads search for the whole block (crypto.batch)."""
         if frames_out and hasattr(softs, "prefetch"):
             # device-backed lazy view: batch the row gathers
             softs.prefetch([(f["carrier"], f["position"] // 2)
@@ -425,10 +427,9 @@ class BatchedFrameDecoder:
             ci, start = frame["carrier"], frame["position"]
             frame["soft_symbols"] = soft_slice(softs, ci, start // 2)
         if any(f.get("decryption_pending") for f in frames_out):
-            raise NotImplementedError(
-                "deferred batch decryption needs the device TEA key "
-                "search, which is not ported yet (ROADMAP.md, modules "
-                "still to port, item 3); leave defer_decrypt unset")
+            from tetraear_tpu_torch.crypto.batch import batch_decrypt_frames
+            batch_decrypt_frames(self.decoders, frames_out,
+                                 device=self._device)
         return frames_out
 
     # -- per-block entry (standalone device dispatch) ----------------------
