@@ -9,7 +9,9 @@ It builds the CUDA kernels from the checkout's sources and drives the
 port's receive paths on the card in phases, one line per result:
 
   1. the card: name and power limit (nvidia-smi);
-  2. build: nvcc time and the kernels' register / shared-memory use;
+  2. build: g++ time of the native frame parser and the voice codec (the
+     run fails unless the native parser loads), nvcc time and the
+     kernels' register / shared-memory use;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      same inputs at the C=1024 (36.864 MHz) and C=10240 (294.912 MHz)
      geometries, with the error, the tolerance, the times of kernel,
@@ -42,6 +44,16 @@ port's receive paths on the card in phases, one line per result:
      on a resident noise block, fused (C=1024, C=10240) and classic
      (fleet-afc, fleet-aligned, bench-afc), with launches per block.
 
+Voice: viterbi_decode against its plain version at B = 8192 and 81920
+(and the C++ decoder on 256 blocks); voice fleet, 16 voice carriers at
+C=1024 on the fused path through process_block (unsplit with sequential
+synthesis, and split by a checkpoint with two synthesis threads): every
+voice carrier's parameters equal to the encoder's, its PCM equal to a
+fresh host decoder's, both runs equal, every viterbi_decode launch held
+against the plain version on its inputs; voice rtl, two voice carriers on
+the classic chain through run_offline, the card's PCM equal to the CPU
+run's.
+
 Beside these: tea, the key search (tea_search) against its plain version
 at a large deferred decryption and a bruteforce sweep, and again at each
 deferred launch the fused stream made; the fleet capture carries TEA1 and
@@ -49,7 +61,7 @@ TEA2 carriers, decrypted on every fleet path; stream, the live path
 (Pipeline.process_block, a checkpoint after block 2 onto a fresh
 Pipeline) fused and classic with two frame workers, each held against
 run_offline on the same frame layer; and process_block's time split by
-part at C=1024 and C=10240.
+part at C=1024 and C=10240, in process and with 2 and 4 frame workers.
 
 Every decode phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a kernel of that path that
@@ -72,6 +84,7 @@ Two other modes print no result line and exit non-zero:
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -98,6 +111,9 @@ KERNELS = {
     "iir_recursion": (CSRC + "probes.cu", "perf/scan_overhead_probe.py:135"),
     # the reference's key search is XLA, no Pallas kernel: its rounds
     "tea_search": (CSRC + "tea.cu", "tetraear_tpu/crypto/batch.py:87"),
+    # the reference's speech channel decoder is XLA too: its lax.scan
+    "viterbi_decode": (CSRC + "viterbi.cu",
+                       "tetraear_tpu/voice/jviterbi.py:72"),
 }
 FUSED_KERNELS = ("fft2p", "band_synth", "fused_backhalf")
 
@@ -1033,6 +1049,7 @@ def run_pipeline(source, fs: float, offsets, device: str,
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
     frames = []
     cfg.setdefault("validate", False)
+    cfg.setdefault("voice", False)
     pipe = Pipeline(PipelineConfig(sample_rate=fs,
                                    carrier_offsets_hz=tuple(offsets),
                                    device=device, **cfg),
@@ -1049,7 +1066,10 @@ def array_source(iq, fs):
     return ArraySource(iq, fs)
 
 
-FUSED_CFG = dict(frontend="fft", carrier_afc=False, auto_decrypt=False)
+# the receive phases run with voice off, as they did before the voice
+# chain was ported, so that their numbers stay comparable
+FUSED_CFG = dict(frontend="fft", carrier_afc=False, auto_decrypt=False,
+                 voice=False)
 
 
 def need_launched(phase: str, counts: dict, names) -> None:
@@ -1291,12 +1311,14 @@ def phase_decode_fleet_afc(c: int, setup: dict, fused_frames: list,
     return counts, frames
 
 
-def stream_pipeline(setup: dict, workers: int, on_frame, **cfg):
+def stream_pipeline(setup: dict, workers: int, on_frame, on_audio=None,
+                    **cfg):
     from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    cfg.setdefault("voice", False)
     return Pipeline(PipelineConfig(
         sample_rate=setup["fs"], carrier_offsets_hz=tuple(setup["offsets"]),
         device=DEV, detect_gate=False, validate=False,
-        frame_workers=workers, **cfg), on_frame=on_frame)
+        frame_workers=workers, **cfg), on_frame=on_frame, on_audio=on_audio)
 
 
 def phase_stream(name: str, c: int, setup: dict, offline: list,
@@ -1399,7 +1421,7 @@ def process_block_split(pipe, blocks: list, n_frame: int | None = None,
         parts["card_split"].append((t2 - t1) * 1e3)
         parts["block_step"].append((t3 - t2) * 1e3)
         if i < n_frame:
-            runner.frames_of(tuple(y.cpu().numpy() for y in ys))
+            runner.frames_of(runner.fetch(ys))
             parts["frame_layer"].append((time.perf_counter() - t3) * 1e3)
         t0 = time.perf_counter()
         host = (kernels.c2p_np if runner.fused else kernels.c2r_np)(b)
@@ -1429,17 +1451,20 @@ def phase_process_block_timing(name: str, setup: dict | None, fs: float,
                                c: int, n_blocks: int, seed: int,
                                chain_ms: float | None,
                                n_frame: int | None = None,
-                               n_whole: int | None = None) -> dict:
+                               n_whole: int | None = None,
+                               workers: int = 0) -> dict:
     """process_block ms/block on fresh host blocks (the capture's, or
     noise when ``setup`` is None), split by part, beside the resident
     chained step; the frame layer and process_block itself on the first
     ``n_frame`` / ``n_whole`` timed blocks (the frame layer's time is the
-    host's, and a noise block at C=10240 takes seconds of it)."""
+    host's, and a noise block at C=10240 takes seconds of it), in process
+    or on ``workers`` frame workers."""
     import numpy as np
     from tetraear_tpu_torch.api import Pipeline, PipelineConfig
     pipe = Pipeline(PipelineConfig(
         sample_rate=fs, carrier_offsets_hz=tuple(grid(c)), device=DEV,
-        detect_gate=False, validate=False, **FUSED_CFG))
+        detect_gate=False, validate=False, frame_workers=workers,
+        **FUSED_CFG))
     bl = pipe.block_len
     if setup is not None:
         iq = setup["iq"]
@@ -1450,9 +1475,15 @@ def phase_process_block_timing(name: str, setup: dict | None, fs: float,
         for _ in range(n_blocks + 1):
             v = rng.standard_normal(2 * bl, dtype=np.float32)
             blocks.append(v.view(np.complex64))
-    r = process_block_split(pipe, blocks, n_frame, n_whole)
+    try:
+        r = process_block_split(pipe, blocks, n_frame, n_whole)
+    finally:
+        pipe.close()
     r["chain_ms"] = chain_ms
-    say(f"process_block {name} C={c}: {r['process_block']:.2f} ms/block "
+    r["frame_workers"] = workers
+    say(f"process_block {name} C={c}"
+        + (f" ({workers} frame workers)" if workers else "")
+        + f": {r['process_block']:.2f} ms/block "
         f"over {r['process_block_blocks']} fresh host blocks of "
         f"{r['block_mbytes']:.0f} MB ({r['block_ms']:.1f} ms of signal); "
         f"over {r['blocks']} blocks: host-to-device "
@@ -1828,6 +1859,424 @@ def phase_chain_classic(name: str, fs: float, c: int, n_blocks: int,
 
 
 # device kernels of a profile by what they do (first match wins)
+# ---------------------------------------------------------------------------
+# voice: the speech channel decoder (viterbi_decode) and the voice paths
+# ---------------------------------------------------------------------------
+
+# integer instructions the speech channel decoder needs a voice block: a
+# trellis step takes the eight distinct branch sums of its three received
+# values (two additions each) and, for each of the 16 states, two
+# additions, a compare, a select and a decision bit; the traceback a
+# shift, a mask and a multiply-add a step; then the class-0 signs and
+# the CRC over 68 bits a check
+V1_OPS_PER_BLOCK = 184 * (8 * 2 + 16 * 5) + 184 * 3 + 102 + 8 * 68.0
+# one and ten voice slots a carrier a block at C = 1024 / 10240
+V1_SIZES = (8192, 81920)
+
+
+def viterbi_inputs(b: int, seed: int):
+    """(b, 432) int32 soft blocks: speech parameters channel-coded by the
+    C++ encoder (+-127) under Gaussian noise of sigma 40, every fourth
+    row pure noise, every sixteenth small noise in [-2, 2] (many equal
+    path metrics), the last row zeros."""
+    import ctypes
+    import numpy as np
+    from tetraear_tpu_torch import native
+    codec = native.codec()
+    rng = np.random.default_rng(seed)
+    ptr = ctypes.POINTER(ctypes.c_int16)
+    base = np.zeros((min(b, 512), 432), np.int32)
+    for i in range(len(base)):
+        params = np.zeros((2, 138), np.int16)
+        params[:, 1:] = rng.integers(0, 2, (2, 137))
+        block = np.zeros(690, np.int16)
+        codec._LIB.tetra_channel_encode(params.ctypes.data_as(ptr),
+                                        block.ctypes.data_as(ptr))
+        base[i] = codec.block_soft_bits(block.tobytes())
+    soft = np.resize(base, (b, 432)).astype(np.float32)
+    soft += 40.0 * rng.standard_normal((b, 432), dtype=np.float32)
+    soft = np.clip(np.round(soft), -127, 127).astype(np.int32)
+    soft[::4] = rng.integers(-127, 128, soft[::4].shape)
+    soft[::16] = rng.integers(-2, 3, soft[::16].shape)
+    soft[-1] = 0
+    return soft
+
+
+def cpp_channel_decode(soft) -> tuple:
+    """The port's C++ decoder (tetra_channel_decode) on each row:
+    ((B, 2, 137) frames, (B,) bfi)."""
+    import numpy as np
+    from tetraear_tpu_torch import native
+    codec = native.codec()
+    vp = codec.VoiceProcessor()
+    frames, bfi = [], []
+    for row in soft:
+        block = np.zeros(690, np.int16)
+        block[0] = codec.CODEC_HEADER
+        pos = 0
+        for lo, hi in ((1, 115), (116, 230), (231, 345), (346, 436)):
+            block[lo:hi] = row[pos:pos + hi - lo]
+            pos += hi - lo
+        out = vp.channel_decode(block.tobytes())
+        frames.append(out[:, 1:].astype(np.uint8))
+        bfi.append(bool(out[0, 0]))
+    return np.stack(frames), np.array(bfi)
+
+
+def check_viterbi(soft_t, what: str, ordered=None, bfi=None) -> None:
+    """The kernel's (or the recorded) outputs on ``soft_t`` bit-equal to
+    the plain version's on the same card."""
+    import torch
+    from tetraear_tpu_torch.voice import viterbi
+    if ordered is None:
+        ordered, bfi = viterbi.decode(soft_t)
+    o_p, b_p = viterbi.decode_plain(soft_t)
+    if not (torch.equal(ordered, o_p) and torch.equal(bfi, b_p)):
+        fail(f"viterbi_decode {what}: {(ordered != o_p).sum().item()} "
+             f"ordered bits and {(bfi != b_p).sum().item()} BFI flags "
+             f"differ from the plain version")
+
+
+def phase_viterbi(seed: int, reps: int) -> dict:
+    """viterbi_decode against its plain version at B = 8192 and 81920
+    (bit-equal), the first 256 blocks also against the C++ decoder;
+    kernel, plain and bound times.  Returns {B: result}."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.voice import viterbi
+    res = {}
+    for b in V1_SIZES:
+        b = 40 if REHEARSE else b
+        soft = viterbi_inputs(b, seed)
+        t = torch.from_numpy(soft).to(DEV)
+        ordered, bfi = viterbi.decode(t)
+        check_viterbi(t, f"B={b}", ordered, bfi)
+        sub = min(b, 256)
+        frames, cbfi = cpp_channel_decode(soft[:sub])
+        if not (np.array_equal(viterbi._unbuild(
+                ordered[:sub].cpu().numpy()), frames)
+                and np.array_equal(bfi[:sub].cpu().numpy(), cbfi)):
+            fail(f"viterbi_decode B={b}: differs from the C++ decoder on "
+                 f"the first {sub} blocks")
+        r = {"max_abs_err": 0.0, "tol": 0.0, "blocks": b,
+             "bad_frames": int(bfi.sum().item()),
+             "ms": event_ms(lambda: viterbi.decode(t), reps),
+             "plain_ms": event_ms(lambda: viterbi.decode_plain(t), 1),
+             "library_ms": None,
+             **bound(nbytes(t, ordered, bfi), 0.0,
+                     issue=V1_OPS_PER_BLOCK * b)}
+        res[b] = r
+        say(f"kernel viterbi_decode B={b}: ordered bits and BFI bit-equal "
+            f"to the plain version, the first {sub} blocks equal to the "
+            f"C++ decoder ({r['bad_frames']} bad frames); "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"call none, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes, {r['ops']:.3e} integer instructions at "
+            f"{ISSUE_PER_CLK_SM:.0f} a clock an SM)")
+        del t, ordered, bfi
+    sync()
+    return res
+
+
+def viterbi_entry(vit: dict, voice_fleet: dict) -> dict:
+    """The kernels line's viterbi_decode entry: B = 8192 as its numbers,
+    B = 81920 and the batch sizes of the voice fleet's launches beside
+    them."""
+    src, replaces = KERNELS["viterbi_decode"]
+    items = sorted(vit.items())
+    (b1, r1), (b2, r2) = items[0], items[-1]
+    return {"name": "viterbi_decode", "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": voice_fleet["launches"]["viterbi_decode"],
+            "max_abs_err": 0.0, "ms": r1["ms"], "plain_ms": r1["plain_ms"],
+            "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
+            "library_ms": None, "bound_bytes": r1["bytes"],
+            "bound_ops": r1["ops"],
+            "shape": f"B={b1} voice blocks of 432 soft bits",
+            f"ms_b{b2}": r2["ms"], f"plain_ms_b{b2}": r2["plain_ms"],
+            f"bound_ms_b{b2}": r2["bound_ms"],
+            f"bound_by_b{b2}": r2["bound_by"],
+            "path_batches": voice_fleet["result"]["viterbi_batches"]}
+
+
+def record_viterbi_calls(calls: list):
+    """Wrap voice.viterbi.decode so that each launch's input and outputs
+    land in ``calls`` (copies on the card); returns the undo."""
+    from tetraear_tpu_torch.voice import viterbi
+    orig = viterbi.decode
+
+    def recording(soft):
+        ordered, bfi = orig(soft)
+        calls.append((soft.clone(), ordered.clone(), bfi.clone()))
+        return ordered, bfi
+
+    viterbi.decode = recording
+
+    def undo():
+        viterbi.decode = orig
+    return undo
+
+
+class VoiceLog:
+    """What a voice Pipeline synthesized, by carrier: the channel decoder
+    output each voice candidate was synthesized from (the batched
+    decoder's, or the host C++ decoder's where the frame took the host
+    path), each PCM chunk with its frame's stream symbol, and the time
+    spent in Pipeline._try_voice (host synthesis)."""
+
+    def __init__(self):
+        from tetraear_tpu_torch import native
+        self.codec = native.codec()
+        self.vp = self.codec.VoiceProcessor()      # stateless calls only
+        self.params: dict = {}
+        self.audio: dict = {}
+        self.synth_s = 0.0
+        self._last = None
+
+    def attach(self, pipe) -> None:
+        orig = pipe._try_voice
+
+        def hooked(frame):
+            if pipe._is_voice_candidate(frame):
+                p = self._params_of(frame)
+                if p is not None:
+                    self.params.setdefault(frame["carrier"], []).append(
+                        (frame["stream_symbol"], p))
+            t0 = time.perf_counter()
+            orig(frame)
+            self.synth_s += time.perf_counter() - t0
+
+        pipe._try_voice = hooked
+
+    def _params_of(self, frame):
+        if "_voice_params" in frame:
+            return frame["_voice_params"].copy()
+        soft = frame.get("soft_symbols")
+        if soft is None:
+            return None
+        if frame.get("stolen"):
+            half = self.codec.stolen_soft_bits(soft)
+            return (None if half is None
+                    else self.vp.channel_decode_stolen(half))
+        block = self.codec.build_codec_block(soft)
+        return None if block is None else self.vp.channel_decode(block)
+
+    def on_audio(self, audio) -> None:
+        self._last = audio
+
+    def on_frame(self, frame) -> None:
+        if frame.get("has_voice"):
+            self.audio.setdefault(frame["carrier"], []).append(
+                (frame["stream_symbol"], self._last))
+        self._last = None
+
+
+def voice_carriers(c: int) -> dict:
+    """carrier -> stolen_every of the voice fleet: 16 carriers spread
+    over the band, two of them stealing every fourth slot (four carriers,
+    one stealing, in the rehearsal's C=8)."""
+    if c < 16:
+        return {1: 0, 3: 4, 5: 0, 6: 0}
+    voiced = [round(i * (c - 1) / 15) for i in range(16)]
+    return {ci: (4 if i in (3, 10) else 0) for i, ci in enumerate(voiced)}
+
+
+def voice_stream_run(setup: dict, split: bool, threads: int,
+                     calls: list | None = None) -> tuple:
+    """process_block over the voice capture, unsplit or with a checkpoint
+    after block 2 onto a fresh Pipeline; returns (VoiceLog, launches,
+    process_block ms of each block, stats)."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    bl = setup["block_len"]
+    blocks = [setup["iq"][i * bl:(i + 1) * bl]
+              for i in range(len(setup["iq"]) // bl)]
+    log = VoiceLog()
+    cfg = dict(FUSED_CFG, voice=True, voice_threads=threads)
+    path = ROOT / "build" / "chip_smoke_voice.npz"
+    path.parent.mkdir(exist_ok=True)
+    undo = record_viterbi_calls(calls) if calls is not None else None
+    ms = []
+    ck.reset_launches()
+    pipe = stream_pipeline(setup, 0, log.on_frame, log.on_audio, **cfg)
+    log.attach(pipe)
+    try:
+        for i, b in enumerate(blocks):
+            if split and i == 2:
+                pipe.save_checkpoint(path)
+                pipe.close()
+                pipe = stream_pipeline(setup, 0, log.on_frame,
+                                       log.on_audio, **cfg)
+                log.attach(pipe)
+                pipe.load_checkpoint(path)
+            t0 = time.perf_counter()
+            pipe.process_block(b)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(ck.launches)
+        stats = pipe.stats
+    finally:
+        pipe.close()
+        if undo is not None:
+            undo()
+    if split:
+        path.unlink()
+    return log, counts, ms, stats
+
+
+def phase_voice_fleet(c: int, nfft: int | None, n_blocks: int,
+                      seed: int) -> dict:
+    """The fused path at fleet size with voice carriers, through
+    process_block: every voice carrier's synthesized parameters equal the
+    encoder's slot for slot, its PCM equals a fresh host decoder's on
+    those parameters in order, the checkpoint-split run with two
+    synthesis threads equals the unsplit sequential one, and every
+    viterbi_decode launch of the run equals the plain version on its
+    inputs."""
+    import numpy as np
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    from tetraear_tpu_torch.golden import VOICE_HEAD_SYMS, fleet_capture
+    fs = FS_SMALL if REHEARSE else FS_FLEET
+    offsets = grid(c)
+    voice = voice_carriers(c)
+    bl = CarrierBankDemod(fs=fs, freqs_hz=offsets, frontend="fft",
+                          nfft=nfft).block_len
+    t0 = time.time()
+    iq, params = fleet_capture(fs, offsets, [], n_blocks * bl, seed=seed,
+                               voice=voice)
+    setup = {"fs": fs, "offsets": offsets, "iq": iq, "block_len": bl}
+    made = time.time() - t0
+    calls = []
+    t0 = time.time()
+    log, counts, ms, stats = voice_stream_run(setup, False, 0, calls)
+    wall = time.time() - t0
+    log2, counts2, _, stats2 = voice_stream_run(setup, True, 2)
+    need_launched("voice fleet", counts,
+                  FUSED_KERNELS + ("viterbi_decode",))
+    need_launched("voice fleet split", counts2, ("viterbi_decode",))
+    for i, (soft, ordered, bfi) in enumerate(calls):
+        check_viterbi(soft, f"voice fleet launch {i} (B={len(soft)})",
+                      ordered, bfi)
+    slots_in = int(n_blocks * bl / fs * 36_000 / 510)
+    decoded = {}
+    for ci, stolen in voice.items():
+        got = log.params.get(ci, [])
+        slots = [(sym - VOICE_HEAD_SYMS + 127) // 255 for sym, _ in got]
+        bad = [s for s, (_, p) in zip(slots, got)
+               if not 0 <= s < len(params[ci])
+               or not np.array_equal(p, params[ci][s])]
+        if bad or len(set(slots)) != len(slots):
+            fail(f"voice fleet: carrier {ci}'s decoded parameters differ "
+                 f"from the encoder's at slots {bad[:5]} (of {slots})")
+        if len(got) < 2 * slots_in // 3:
+            fail(f"voice fleet: carrier {ci} decoded {len(got)} of about "
+                 f"{slots_in} slots")
+        vp = log.codec.VoiceProcessor()
+        want = [a for a in (vp.decode_params(p) for _, p in got) if len(a)]
+        pcm = [a for _, a in log.audio.get(ci, [])]
+        if len(pcm) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(pcm, want)):
+            fail(f"voice fleet: carrier {ci}'s PCM ({len(pcm)} chunks) "
+                 f"differs from a fresh host decoder on its parameters "
+                 f"({len(want)} chunks)")
+        pcm2 = log2.audio.get(ci, [])
+        if [s for s, _ in pcm2] != [s for s, _ in log.audio[ci]] or not all(
+                np.array_equal(a, b) for (_, a), (_, b)
+                in zip(pcm2, log.audio[ci])):
+            fail(f"voice fleet: carrier {ci}'s PCM from the checkpoint-"
+                 f"split run with 2 synthesis threads differs from the "
+                 f"unsplit sequential run")
+        if stolen and not any(p[0, 0] for _, p in got):
+            fail(f"voice fleet: carrier {ci} decoded no stolen slot")
+        decoded[ci] = len(got)
+    idle_cands = sum(len(v) for ci, v in log.params.items()
+                     if ci not in voice)
+    idle_voice = sum(len(v) for ci, v in log.audio.items()
+                     if ci not in voice)
+    sizes = [len(s) for s, _, _ in calls]
+    steady = ms[1:] or ms
+    r = {"carriers": c, "voice_carriers": len(voice),
+         "stolen_carriers": sum(1 for v in voice.values() if v),
+         "blocks": len(ms), "slots_per_carrier": slots_in,
+         "decoded_slots": decoded, "voice_frames": stats.voice_frames,
+         "stolen_frames": stats.stolen_frames,
+         "voice_frames_split": stats2.voice_frames,
+         "viterbi_batches": sizes, "idle_voice_candidates": idle_cands,
+         "idle_voice_chunks": idle_voice,
+         "process_block_ms": ms,
+         "process_block_ms_steady": sum(steady) / len(steady),
+         "host_synthesis_ms_per_block": log.synth_s * 1e3 / len(ms),
+         "capture_s": made, "wall_s": wall}
+    say(f"voice fleet C={c}: {len(voice)} voice carriers "
+        f"({r['stolen_carriers']} stealing every 4th slot) over "
+        f"{len(ms)} blocks: decoded slots {sorted(decoded.values())} of "
+        f"about {slots_in}, every one equal to the encoder's parameters, "
+        f"PCM equal to a fresh host decoder's, the split run with 2 "
+        f"synthesis threads equal to the unsplit one; {stats.voice_frames} "
+        f"voice frames ({stats.stolen_frames} stolen); viterbi_decode "
+        f"launches of B={sizes}, each equal to the plain version; "
+        f"{idle_cands} voice candidates on idle carriers "
+        f"({idle_voice} synthesized to audio); process_block "
+        f"{r['process_block_ms_steady']:.2f} ms/block after the first, "
+        f"host synthesis {r['host_synthesis_ms_per_block']:.2f} ms/block; "
+        f"launches { {k: v for k, v in counts.items() if v} }; capture "
+        f"made in {made:.1f} s")
+    del calls, setup, iq
+    return {"result": r, "launches": counts}
+
+
+def phase_voice_rtl() -> dict:
+    """The classic chain (conv frontend, AFC) on a two-carrier voice
+    capture at 2.4 Msps, one stealing, through run_offline on the card
+    and on the CPU: the same PCM chunks, sample for sample."""
+    import numpy as np
+    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.golden import speech
+    from tetraear_tpu_torch.ref import golden
+    n = 12 if REHEARSE else 20
+    a = golden.golden_voice_iq(speech(n, 57, 0), fs=FS_RTL, seed=15,
+                               stolen_every=5)
+    b = golden.golden_voice_iq(speech(n, 44, 1), fs=FS_RTL, seed=16)
+    m = min(len(a), len(b))
+    t = np.arange(m) / FS_RTL
+    iq = (a[:m] * np.exp(-2j * np.pi * 250e3 * t)
+          + b[:m] * np.exp(2j * np.pi * 250e3 * t)).astype(np.complex64)
+    runs = {}
+    for device in (DEV, "cpu"):
+        audio = []
+        pipe = Pipeline(PipelineConfig(
+            sample_rate=FS_RTL, carrier_offsets_hz=(-250e3, 250e3),
+            device=device, validate=False, block_len=131_072),
+            on_audio=audio.append)
+        ck.reset_launches()
+        stats = pipe.run_offline(array_source(iq, FS_RTL),
+                                 blocks_per_dispatch=4)
+        sync()
+        runs[device] = (audio, stats, dict(ck.launches), pipe)
+        pipe.close()
+    audio, stats, counts, pipe = runs[DEV]
+    if pipe.runner.fused is not None or not pipe.bank.afc:
+        fail("voice rtl: expected the classic chain with AFC")
+    need_launched("voice rtl", counts, ("frame_scan_even", "viterbi_decode"))
+    cpu_audio, cpu_stats = runs["cpu"][0], runs["cpu"][1]
+    if (len(audio) != len(cpu_audio) or not all(
+            np.array_equal(x, y) for x, y in zip(audio, cpu_audio))
+            or stats.voice_frames != cpu_stats.voice_frames
+            or stats.stolen_frames != cpu_stats.stolen_frames):
+        fail(f"voice rtl: the card's PCM ({len(audio)} chunks, "
+             f"{stats.voice_frames} voice / {stats.stolen_frames} stolen "
+             f"frames) differs from the CPU run's ({len(cpu_audio)}, "
+             f"{cpu_stats.voice_frames} / {cpu_stats.stolen_frames})")
+    if stats.voice_frames < n or stats.stolen_frames < 1:
+        fail(f"voice rtl: {stats.voice_frames} voice frames "
+             f"({stats.stolen_frames} stolen) of 2 x {n} slots")
+    say(f"voice rtl: classic chain (conv, AFC), 2 carriers, "
+        f"{stats.blocks} blocks: {stats.voice_frames} voice frames "
+        f"({stats.stolen_frames} stolen), PCM equal to the CPU run sample "
+        f"for sample; launches { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 PROFILE_GROUPS = (
     ("hand-written kernels", ("band_synth_kernel", "frame_scan_kernel",
                               "fused_backhalf_kernel", "fft2p_pass",
@@ -1991,7 +2440,22 @@ def main(argv: list) -> int:
         f"{SM_CLOCK_HZ / 1e6:.0f} MHz (clocks.max.sm)")
     t_start = time.time()
 
+    from tetraear_tpu_torch import native
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    t0 = time.time()
+    for name in ("frame", "voice"):
+        native.build(name)
+    hitparse = native.hitparse()
+    setting = os.environ.get("TETRAEAR_HITPARSE")
+    said = ("" if setting is None else
+            f"; TETRAEAR_HITPARSE={setting}: the "
+            f"{'native' if hitparse.available() else 'Python'} parse runs")
+    if not hitparse.available():
+        fail(f"the native frame parser is not loaded{said}")
+    parts = ", ".join(f"{k} {v['seconds']:.1f} s"
+                      for k, v in native.build_info.items())
+    say(f"build: g++ frame parser and voice codec {time.time() - t0:.1f} s "
+        f"({parts}){said}")
     if not REHEARSE:
         t0 = time.time()
         ck.build()
@@ -2022,6 +2486,7 @@ def main(argv: list) -> int:
                              nfft=nfft_bench)
     phase_kernels_extra(seed=6)
     tea = phase_tea(seed=8, reps=5, int_rates=int_rates)
+    vit = phase_viterbi(seed=9, reps=5)
     say(f"[{time.time() - t_start:.0f} s] kernels checked")
     phase_decode_small()
     # Pipeline takes no nfft: the rehearsal's fleet is the small geometry
@@ -2045,9 +2510,17 @@ def main(argv: list) -> int:
     tea_path = phase_tea_path(tea_calls, reps=5)
     pb_fleet = phase_process_block_timing("fleet", setup, fleet_fs, c_fleet,
                                           2, 0, None)
+    pb_fleet_w = {w: phase_process_block_timing(
+        "fleet", setup, fleet_fs, c_fleet, 2, 0, None, workers=w)
+        for w in (2, 4)}
     del fused_frames, afc_frames_w, setup, tea_calls
     say(f"[{time.time() - t_start:.0f} s] fleet decodes and streams at "
         f"{fleet_fs / 1e6:g} MHz done")
+    t_voice = time.time()
+    voice_fleet = phase_voice_fleet(c_fleet, nfft_fleet, 4, seed=21)
+    counts_vrtl = phase_voice_rtl()
+    say(f"[{time.time() - t_start:.0f} s] voice phases done in "
+        f"{time.time() - t_voice:.0f} s")
     if REHEARSE:
         counts_al = counts_x = {k: 0 for k in ck.launches}
     counts_rtl = phase_decode_rtl()
@@ -2076,6 +2549,10 @@ def main(argv: list) -> int:
     pb_bench = phase_process_block_timing(
         "bench", None, FS_SMALL if REHEARSE else FS_BENCH, c_bench, 2, 17,
         chains["c10240"]["ms_per_block"], n_frame=1, n_whole=1)
+    pb_bench_w = {w: phase_process_block_timing(
+        "bench", None, FS_SMALL if REHEARSE else FS_BENCH, c_bench, 2, 17,
+        chains["c10240"]["ms_per_block"], n_frame=1, n_whole=1, workers=w)
+        for w in (2, 4)}
     say(f"[{time.time() - t_start:.0f} s] chains timed")
 
     bad = sorted(m for m in sys.modules
@@ -2099,6 +2576,9 @@ def main(argv: list) -> int:
     for name, (src, replaces) in KERNELS.items():
         if name == "tea_search":
             kernels.append(tea_entry(tea, tea_path, counts_stream))
+            continue
+        if name == "viterbi_decode":
+            kernels.append(viterbi_entry(vit, voice_fleet))
             continue
         k1, k2 = kern[name], kern_big[name]
         if main_path[name][name] == 0:
@@ -2140,8 +2620,15 @@ def main(argv: list) -> int:
             "pass1_probe": counts_p1, "place_probe": counts_pl,
             "ops_probe": counts_op, "iir_probe": counts_iir,
             "stream_fused": counts_stream,
-            "stream_classic_workers": counts_stream_w},
-        "process_block": {"c1024": pb_fleet, "c10240": pb_bench},
+            "stream_classic_workers": counts_stream_w,
+            "voice_fleet": voice_fleet["launches"],
+            "voice_rtl": counts_vrtl},
+        "process_block": {
+            "c1024": pb_fleet, "c10240": pb_bench,
+            **{f"c1024_workers{w}": r for w, r in pb_fleet_w.items()},
+            **{f"c10240_workers{w}": r for w, r in pb_bench_w.items()}},
+        "voice_fleet": voice_fleet["result"],
+        "native_build": native.build_info,
         "seconds": time.time() - t_start}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -247,3 +247,48 @@ def test_scoring_feeds_the_scoring_decoders_parsers():
             assert any(st is not None for st in port)
         else:
             assert port == [None, None]
+
+
+def _layer_frames(layer, blocks) -> list:
+    valid = np.ones(blocks[0].shape, bool)
+    out = []
+    try:
+        for b in blocks:
+            out += [(f["carrier"], f["stream_symbol"],
+                     bool(f.get("burst_crc")), f.get("sds_message"),
+                     f.get("decrypted"), f.get("key_used"))
+                    for f in layer.process(b, None, valid)]
+    finally:
+        if hasattr(layer, "close"):
+            layer.close()
+    return out
+
+
+def test_sharded_layers_reassemble_noise_otherwise_in_both_packages():
+    """The in-process and the worker-sharded frame layers give different
+    frames on noise, in the JAX package as in the port: scoring candidate
+    plaintexts feeds the MAC parser of the decoder that scores, which
+    in process is the carrier's own and in the sharded layer the
+    parent's template.  Three blocks of random symbols on four carriers
+    (rows 28, 60, 77 and 79 of a 1024-carrier noise block, where the two
+    JAX layers differ): each port layer equals its JAX counterpart frame
+    for frame, and the two layers differ in both packages."""
+    from tetraear_tpu.frame.batch import BatchedFrameDecoder as JaxLayer
+    from tetraear_tpu.frame.parallel import ShardedFrameLayer as JaxSharded
+    from tetraear_tpu_torch.frame.parallel import ShardedFrameLayer
+    rng = np.random.default_rng(1)
+    rows = [28, 60, 77, 79]
+    blocks = [rng.integers(0, 4, (1024, 2032)).astype(np.uint8)[rows]
+              for _ in range(3)]
+    jax_in = _layer_frames(JaxLayer(4, auto_decrypt=True), blocks)
+    jax_sh = _layer_frames(JaxSharded(4, n_workers=2, auto_decrypt=True),
+                           blocks)
+    port_in = _layer_frames(BatchedFrameDecoder(4, auto_decrypt=True,
+                                                device=CPU), blocks)
+    port_sh = _layer_frames(ShardedFrameLayer(4, n_workers=2,
+                                              auto_decrypt=True,
+                                              device=CPU), blocks)
+    assert port_in == jax_in
+    assert port_sh == jax_sh
+    assert jax_in != jax_sh
+    assert {f[0] for f in set(jax_in) ^ set(jax_sh)} == {0, 1, 2, 3}

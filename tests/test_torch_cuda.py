@@ -224,3 +224,14 @@ def test_tea_wrapper_raises_on_mixed_devices(smoke):
     kw = torch.zeros(3, 4, dtype=torch.int32)
     with pytest.raises(ValueError):
         cbatch.tea_search(v, v, kw, False)
+
+
+@pytest.mark.cuda
+def test_viterbi_decode_matches_plain_and_cpp_on_card(smoke):
+    """viterbi_decode at B = 8192 and 81920 (encoded blocks under noise,
+    pure-noise and all-zero blocks): ordered bits and BFI bit-equal to
+    the plain version, the first 256 blocks to the C++ decoder;
+    phase_viterbi exits on any difference."""
+    res = smoke.phase_viterbi(seed=9, reps=2)
+    assert sorted(res) == list(smoke.V1_SIZES)
+    assert all(r["bound_ms"] > 0 for r in res.values())

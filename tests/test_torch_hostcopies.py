@@ -49,8 +49,15 @@ COPIES = {
     "ref/modulator.py": (),
     "ref/polyphase.py": (),
     "utils/logging.py": (),
-    # the scan kernel is built at first use on the port's device, and
-    # the deferred key search runs on that device
+    "voice/etsi_tables.py": (),
+    "voice/acelp_tables.py": (),
+    "voice/codec.py": (),
+    "voice/export.py": (),
+    "ref/golden.py": (),
+    "runtime/sources.py": (),
+    # the scan kernel is built at first use on the port's device, the
+    # native parser is built before the first parse, and the deferred
+    # key search runs on that device
     "frame/batch.py": ("BatchedFrameDecoder.__init__",
                        "BatchedFrameDecoder.kernel",
                        "BatchedFrameDecoder._attach_and_decrypt"),
@@ -61,9 +68,6 @@ COPIES = {
                           "_worker_main",
                           "ShardedFrameLayer.parser_states",
                           "ShardedFrameLayer.set_parser_states"),
-    # the voice codec is not ported: these raise NotImplementedError
-    "ref/golden.py": ("golden_voice_iq",),
-    "runtime/sources.py": ("SyntheticTetraSource._voice_bits",),
 }
 
 # string literals the copies word otherwise (original -> copy)
@@ -80,6 +84,15 @@ PARTS = {
     "Pipeline.run": ("api.py", "api.py"),
     "Pipeline.frames": ("api.py", "api.py"),
     "Pipeline.__del__": ("api.py", "api.py"),
+    "Pipeline.voice_for": ("api.py", "api.py"),
+    "Pipeline._is_voice_candidate": ("api.py", "api.py"),
+    "Pipeline._synth_voice_parallel": ("api.py", "api.py"),
+    "Pipeline._try_voice": ("api.py", "api.py"),
+    "Pipeline._try_voice_stolen": ("api.py", "api.py"),
+    # the static maps of the speech channel decoder
+    "_expected_signs": ("voice/jviterbi.py", "voice/viterbi.py"),
+    "_code_step_index": ("voice/jviterbi.py", "voice/viterbi.py"),
+    "_unbuild": ("voice/jviterbi.py", "voice/viterbi.py"),
 }
 
 
@@ -150,6 +163,14 @@ def test_native_parser_sources_equal(rel):
     assert got.replace("tetraear_tpu_torch", "tetraear_tpu") == want
 
 
+@pytest.mark.parametrize("rel", sorted(
+    p.name for p in (JAX_PKG / "voice/csrc").iterdir() if p.is_file()))
+def test_codec_sources_equal(rel):
+    want = (JAX_PKG / "voice/csrc" / rel).read_text()
+    got = (PORT / "voice/csrc" / rel).read_text()
+    assert got.replace("tetraear_tpu_torch", "tetraear_tpu") == want
+
+
 def test_port_imports_nothing_of_the_jax_package(tmp_path):
     """Every module of the port imports, and neither jax nor any module
     named tetraear_tpu or tetraear_tpu.* is loaded afterwards."""
@@ -212,7 +233,7 @@ def test_resolve_cpu_only_when_asked():
 @pytest.mark.parametrize("entry", ["pipeline", "fused", "runner",
                                    "bank_state", "scan_kernel", "convert",
                                    "cli", "listen", "key_search",
-                                   "sharded"])
+                                   "sharded", "voice_decode"])
 def test_entry_points_raise_without_a_card(entry, tmp_path):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
@@ -226,6 +247,7 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
     from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
     from tetraear_tpu_torch.runtime.stream import DecodeRunner
+    from tetraear_tpu_torch.voice.viterbi import channel_decode_batch
 
     import numpy as np
     calls = {
@@ -248,6 +270,8 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
         "key_search": lambda: tea_key_search(np.zeros((2, 8), np.uint8),
                                              [bytes(10)]),
         "sharded": lambda: Pipeline(PipelineConfig(frame_workers=2)),
+        "voice_decode": lambda: channel_decode_batch(
+            np.zeros((2, 432), np.int32)),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()

@@ -134,19 +134,19 @@ def test_decode_runner_batch_size_invariant(single, s):
 
 
 @pytest.mark.parametrize("change", [
-    {"voice": True}, {"frame_workers": 2}, {"sparse_hits": False},
+    {"device_voice": True}, {"frame_workers": 2}, {"sparse_hits": False},
     {"carrier_afc": True}, {"sample_rate": 2.4e6},
     {"frontend": "conv"}])
 def test_ineligible_config_raises(change):
-    """What is not ported (voice) raises; frame workers build the
-    worker-sharded frame layer under the same runner; what the fused back
-    half cannot serve takes the classic chain, for the reason the JAX
-    FusedRx gives."""
+    """What is not ported (speech synthesis on the device) raises; frame
+    workers build the worker-sharded frame layer under the same runner;
+    what the fused back half cannot serve takes the classic chain, for
+    the reason the JAX FusedRx gives."""
     cfg = dict(sample_rate=FS, carrier_offsets_hz=(12_500.0,),
                frontend="fft", carrier_afc=False, device="cpu")
     cfg.update(change)
-    if "voice" in change:
-        with pytest.raises(ValueError):
+    if "device_voice" in change:
+        with pytest.raises(ValueError, match="ROADMAP"):
             Pipeline(PipelineConfig(**cfg))
         return
     pipe = Pipeline(PipelineConfig(**cfg))

@@ -298,19 +298,20 @@ def test_checkpoint_round_trip(fused, tmp_path, path, workers):
 def test_checkpoint_layout_and_checks(fused, tmp_path):
     """The .npz layout is the JAX package's, leaf for leaf: the port's
     checkpoint of the fused state has the JAX file's leaf count, shapes
-    and dtypes; restore_into rejects a wrong leaf count, a wrong shape
-    and (for files the port wrote) a wrong structure, and accepts the
-    JAX structure string."""
+    and dtypes and the JAX file's structure string (so the JAX package
+    restores the port's file); restore_into rejects a wrong leaf count, a
+    wrong shape and a wrong structure, and accepts the JAX file."""
     _, _, jax_ckpt = fused
-    pipe = Pipeline(PipelineConfig(device=CPU, **FUSED_CFG))
+    # the JAX file's configuration: voice off (no decoder states in aux)
+    pipe = Pipeline(PipelineConfig(device=CPU, voice=False, **FUSED_CFG))
     path = tmp_path / "port.npz"
     pipe.save_checkpoint(path)
     mine, extra, aux = checkpoint.load_state(path)
     theirs, jextra, jaux = checkpoint.load_state(jax_ckpt)
     assert [(a.shape, a.dtype) for a in mine] == \
         [(a.shape, a.dtype) for a in theirs]
-    assert extra["__treedef__"].startswith(checkpoint.STRUCTURE_TAG)
-    assert not jextra["__treedef__"].startswith(checkpoint.STRUCTURE_TAG)
+    # the structure string is the one jax.tree_util prints for the tree
+    assert extra["__treedef__"] == jextra["__treedef__"]
     assert set(aux) == set(jaux) | {"batch_tail_hard", "batch_tail_soft",
                                     "batch_tail_valid"}
     state = checkpoint.restore_into(pipe.state, theirs,
@@ -323,8 +324,7 @@ def test_checkpoint_layout_and_checks(fused, tmp_path):
     with pytest.raises(ValueError, match="leaf 0"):
         checkpoint.restore_into(pipe.state, bad)
     with pytest.raises(ValueError, match="tree structure"):
-        checkpoint.restore_into(pipe.state, mine,
-                                checkpoint.STRUCTURE_TAG + "{}")
+        checkpoint.restore_into(pipe.state, mine, "PyTreeDef({})")
 
 
 @pytest.mark.parametrize("kind", ["signal", "noise"])

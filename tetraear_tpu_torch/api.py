@@ -18,9 +18,15 @@ the card unless ``device="cpu"`` is given.
   * ``frame_workers > 0``: the per-hit frame layer sharded over worker
     processes (frame/parallel.py);
   * encrypted frames finish with one device key search per block
-    (crypto/batch.py).
+    (crypto/batch.py);
+  * voice (``voice=True``, the default): a block's voice candidates are
+    channel-decoded in one launch of the ``viterbi_decode`` kernel
+    (voice/viterbi.py) and synthesized by the port's copy of the C++
+    codec (voice/codec.py, built with g++ at first use), one stateful
+    decoder a carrier, on the main thread or on ``voice_threads``.
 
-Not ported yet, and raising when asked for: voice (``voice=True``).
+Not ported yet, and raising when asked for: speech synthesis on the
+device (``device_voice=True``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import json
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -75,7 +82,13 @@ class PipelineConfig:
                                         # carrier_afc off it enables the
                                         # fused back half)
     fft_size: int = 2048                # detection gate's FFT
-    voice: bool = False                 # voice chain: not ported yet
+    voice: bool = True                  # voice chain: channel decode on
+                                        # the card, host synthesis
+    voice_threads: int = 0              # >1: synthesize voice carriers
+                                        # concurrently (one pool task per
+                                        # carrier)
+    device_voice: bool = False          # speech synthesis on the device:
+                                        # not ported yet (raises)
     frame_workers: int = 0              # >0: shard the per-hit frame layer
                                         # over worker processes
                                         # (frame.parallel)
@@ -123,12 +136,15 @@ class Pipeline:
     def __init__(self, config: PipelineConfig, on_frame=None,
                  on_spectrum=None, on_audio=None, on_status=None,
                  on_raw_audio=None):
-        if config.voice:
-            raise ValueError("voice decode is not ported yet (voice=False)")
+        if config.device_voice:
+            raise ValueError(
+                "device_voice=True: speech synthesis on the device is not "
+                "ported yet (ROADMAP.md section 1, item 2); the host codec "
+                "synthesizes with device_voice=False")
         self.config = config
         self.on_frame = on_frame
         self.on_spectrum = on_spectrum
-        self.on_audio = on_audio            # voice: not ported, never fires
+        self.on_audio = on_audio
         self.on_status = on_status
         self.on_raw_audio = on_raw_audio
         self._fm_prev = 1.0 + 0j
@@ -177,9 +193,27 @@ class Pipeline:
         # the runner picks the back half (backhalf.try_fused); its step is
         # process_block's device step and run_offline's batched one
         self._device_scan = bool(config.device_scan)
+        self.voice = None
+        self._voice_states: dict = {}
+        self._voice_pool = None
+        # the device speech pool (DeviceSpeechPool) is the next slice;
+        # without it every voice frame synthesizes on the host
+        self._voice_device = None
+        if config.voice:
+            # the codec is built with g++ here; a failed build raises
+            from tetraear_tpu_torch import native
+            vp = native.codec().VoiceProcessor()
+            self.voice = vp
+            # the probe doubles as carrier 0's decoder state
+            self._voice_states[0] = vp
+            if config.voice_threads > 1:
+                self._voice_pool = ThreadPoolExecutor(
+                    max_workers=int(config.voice_threads),
+                    thread_name_prefix="voice-synth")
         self.runner = DecodeRunner(self.bank, self.batch,
                                    device=self.device,
-                                   sparse=config.sparse_hits)
+                                   sparse=config.sparse_hits,
+                                   fetch_soft=self.voice is not None)
         if self._device_scan:
             self.state = self.runner.init_state()
         else:
@@ -197,12 +231,26 @@ class Pipeline:
         self._last_signal_t = 0.0
         self._afc_offset = 0.0
         self._jsonl = None
-        if config.records_dir:
-            rec = Path(config.records_dir)
-            rec.mkdir(parents=True, exist_ok=True)
+        self._records_dir = (Path(config.records_dir) if config.records_dir
+                             else None)
+        if self._records_dir:
+            self._records_dir.mkdir(parents=True, exist_ok=True)
             ts = time.strftime("%Y%m%d_%H%M%S")
-            self._jsonl = open(rec / f"frames_{ts}.jsonl", "a",
-                               encoding="utf-8")
+            self._jsonl = open(self._records_dir / f"frames_{ts}.jsonl",
+                               "a", encoding="utf-8")
+
+    def voice_for(self, carrier: int):
+        """Per-carrier ACELP decoder state.  The speech decoder is
+        STATEFUL (adaptive-codebook history, gain predictors, LSP
+        interpolation memory carry across frames); one shared state
+        would interleave concurrent calls on different carriers into
+        garbage.  The reference never hits this (one carrier per
+        process); a carrier bank must keep one state per carrier."""
+        vp = self._voice_states.get(carrier)
+        if vp is None:
+            from tetraear_tpu_torch.voice.codec import VoiceProcessor
+            vp = self._voice_states[carrier] = VoiceProcessor()
+        return vp
 
     # -- detection gate ----------------------------------------------------
 
@@ -286,13 +334,16 @@ class Pipeline:
             runner = self.runner
             ys, self.state = runner.step(runner.ingest(block[None])[0],
                                          self.state)
-            frames_out = runner.frames_of(
-                tuple(t.cpu().numpy() for t in ys))
+            frames_out = runner.frames_of(runner.fetch(ys))
         else:
             out, self.state = self.bank.step(block, self.state)
-            frames_out = self.batch.process(out["hard"].cpu().numpy(),
-                                            None,
-                                            out["valid"].cpu().numpy())
+            frames_out = self.batch.process(
+                out["hard"].cpu().numpy(),
+                (out["soft"].cpu().numpy() if self.voice is not None
+                 else None),
+                out["valid"].cpu().numpy())
+        self._prepare_voice_batch(frames_out)
+        self._synth_voice_parallel(frames_out)
         for f in frames_out:
             ci = f["carrier"]
             f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
@@ -329,12 +380,190 @@ class Pipeline:
             frame["validation_issues"] = issues
             if ok:
                 self.stats.valid_frames += 1
+        if self.voice is not None:
+            self._try_voice(frame)
         self.aggregator.add_frame(frame)
         if self._jsonl is not None:
             self._jsonl.write(json.dumps(_jsonable(frame)) + "\n")
             self._jsonl.flush()
         if self.on_frame:
             self.on_frame(frame)
+
+    # -- voice ---------------------------------------------------------------
+
+    @staticmethod
+    def _is_voice_candidate(frame: dict) -> bool:
+        """MAC-FRAG/type-1, clear or successfully decrypted
+        (modern.py:2088-2100)."""
+        pdu_type = str((frame.get("mac_pdu") or {}).get("type", ""))
+        return (("FRAG" in pdu_type or frame.get("type") == 1)
+                and (not frame.get("encrypted")
+                     or frame.get("decrypted")
+                     or frame.get("encryption_suspected")))
+
+    def _prepare_voice_batch(self, frames: list) -> None:
+        """Channel-decode all of a block's voice candidates in ONE launch
+        of the speech channel decoder (voice.viterbi: the viterbi_decode
+        kernel on the card, its plain version on the CPU; bit-exact vs
+        the C++ decoder); per-frame speech synthesis then runs from the
+        decoded parameters in _try_voice.  With fewer than two candidates
+        the host C++ path decodes them in _try_voice, as in the JAX
+        package.  A stolen frame (half-slot voice) channel-decodes on the
+        host in _try_voice_stolen: a cheap stateless call, and stealing
+        is rare."""
+        if self.voice is None:
+            return
+        from tetraear_tpu_torch.voice.codec import (block_soft_bits,
+                                                    build_codec_block)
+        cands = []
+        for f in frames:
+            if not self._is_voice_candidate(f) or f.get("stolen"):
+                continue
+            soft = f.get("soft_symbols")
+            if soft is None:
+                continue
+            block = build_codec_block(soft)
+            if block is None:
+                continue
+            f["_voice_block"] = block
+            cands.append(f)
+        if len(cands) < 2:
+            return
+        from tetraear_tpu_torch.voice import viterbi
+        softs = np.stack([block_soft_bits(f["_voice_block"])
+                          for f in cands])
+        out = viterbi.channel_decode_batch(softs, device=self.device)
+        for i, f in enumerate(cands):
+            params = np.zeros((2, 138), np.int16)
+            params[:, 0] = 1 if out["bfi"][i] else 0
+            params[:, 1:] = out["frames"][i]
+            f["_voice_params"] = params
+
+    def _synth_voice_parallel(self, frames: list) -> None:
+        """Synthesize this block's voice candidates concurrently, one
+        pool task per carrier (PipelineConfig.voice_threads): speech
+        decoders are stateful per carrier (voice_for), so a carrier's
+        frames stay sequential on its own state while different
+        carriers run on pool threads — the C synthesis call releases
+        the GIL (ctypes) and touches only its own decoder handle
+        (voice/csrc: per-handle state, thread_local scratch).  Results
+        ride in frame["_voice_audio"]; _try_voice then runs unchanged
+        on the main thread (records file, stats, on_audio callbacks,
+        in frame order), so output ordering and audio samples are
+        identical to the sequential path (test_voice_rf)."""
+        if self._voice_pool is None:
+            return
+        by_c: dict = {}
+        halted: set = set()
+        for f in frames:
+            ci = f["carrier"]
+            if f.get("stolen"):
+                # a stolen voice candidate synthesizes INLINE on the
+                # carrier's stateful decoder (_try_voice_stolen);
+                # pre-synthesizing this carrier's LATER frames here
+                # would reorder its decoder-state updates, so the
+                # carrier's pre-synthesis stops at the first stolen
+                # frame and the rest stays sequential
+                if self._is_voice_candidate(f):
+                    halted.add(ci)
+                continue
+            if "_voice_block" not in f or ci in halted:
+                continue
+            by_c.setdefault(ci, []).append(f)
+        if len(by_c) < 2:
+            return                       # nothing to overlap
+
+        def synth(vp, fs):
+            # every pre-synthesizable frame carries device-decoded
+            # params (_prepare_voice_batch ran with >= 2 candidates);
+            # the whole carrier is ONE foreign call, GIL released
+            # throughout (codec.decode_params_many)
+            return vp.decode_params_many(
+                np.stack([f["_voice_params"] for f in fs]))
+
+        # voice_for allocates decoder states lazily: do it on the main
+        # thread so the state dict is never mutated concurrently
+        futs = [(fs, self._voice_pool.submit(synth, self.voice_for(ci),
+                                             fs))
+                for ci, fs in by_c.items()]
+        for fs, fut in futs:
+            for f, audio in zip(fs, fut.result()):
+                f["_voice_audio"] = audio
+
+    def _try_voice(self, frame: dict) -> None:
+        """Voice candidate path (modern.py:2088-2228): soft bits ->
+        codec block -> PCM; channel decoding may already have happened
+        batched on device (_prepare_voice_batch)."""
+        if frame.get("stolen"):
+            self._try_voice_stolen(frame)
+            return
+        block = frame.pop("_voice_block", None)
+        if block is None:
+            if not self._is_voice_candidate(frame):
+                return
+            from tetraear_tpu_torch.voice.codec import build_codec_block
+            soft = frame.get("soft_symbols")
+            if soft is None:
+                return
+            block = build_codec_block(soft)
+            if block is None:
+                return
+        if self._records_dir is not None:
+            with open(self._records_dir / "tetra_frames.bin", "ab") as fh:
+                fh.write(block)
+        params = frame.pop("_voice_params", None)
+        audio = frame.pop("_voice_audio", None)   # pre-synthesized
+        if audio is None:
+            if self._voice_device is not None:
+                # device mode: every candidate was synthesized in
+                # _synth_voice_device (or its channel decode failed);
+                # the host decoder must not fork the device state
+                return
+            vp = self.voice_for(frame.get("carrier", 0))
+            if params is not None:
+                audio = vp.decode_params(params)
+            else:
+                audio = vp.decode_frame(block)
+        if len(audio):
+            frame["has_voice"] = True
+            self.stats.voice_frames += 1
+            if self.on_audio:
+                self.on_audio(audio)
+
+    def _try_voice_stolen(self, frame: dict) -> None:
+        """Frame-stealing slot (normal training sequence 2): block 2 is a
+        half-slot-coded speech frame (EN 300 395-2 §5), block 1 is STCH
+        signalling already parsed by the MAC layer.  The reference drops
+        these slots (its codec only consumes full 432-bit blocks)."""
+        if not self._is_voice_candidate(frame):
+            return
+        audio = frame.pop("_voice_audio", None)   # device-synthesized
+        frame.pop("_voice_params", None)
+        if audio is None:
+            if self._voice_device is not None:
+                # device mode channel-decodes stolen candidates in
+                # _prepare_voice_batch; reaching here means that failed
+                # (no soft bits / malformed half slot) — nothing to do,
+                # and the host decoder must not fork the device state
+                return
+            from tetraear_tpu_torch.voice.codec import stolen_soft_bits
+            soft = frame.get("soft_symbols")
+            if soft is None:
+                return
+            half = stolen_soft_bits(soft)
+            if half is None:
+                return
+            vp = self.voice_for(frame.get("carrier", 0))
+            params = vp.channel_decode_stolen(half)
+            if params is None:
+                return
+            audio = vp.decode_params(params)
+        if len(audio):
+            frame["has_voice"] = True
+            self.stats.voice_frames += 1
+            self.stats.stolen_frames += 1
+            if self.on_audio:
+                self.on_audio(audio)
 
     def _maybe_afc_retune(self, source) -> None:
         """Apply the smoothed capture-level AFC offset by retuning the
@@ -384,8 +613,12 @@ class Pipeline:
         return self.stats
 
     def close(self) -> None:
-        """Release held resources: the JSONL sink and the worker-sharded
-        frame layer (idempotent; also run by __del__)."""
+        """Release held resources: the voice synthesis pool, the JSONL
+        sink and the worker-sharded frame layer (idempotent; also run by
+        __del__)."""
+        if self._voice_pool is not None:
+            self._voice_pool.shutdown(wait=True)
+            self._voice_pool = None
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
@@ -409,6 +642,10 @@ class Pipeline:
         runner.s = int(blocks_per_dispatch)
 
         def on_frames(frames):
+            # the block-level voice passes of process_block: one batched
+            # channel decode, then per-carrier synthesis
+            self._prepare_voice_batch(frames)
+            self._synth_voice_parallel(frames)
             for f in frames:
                 ci = f["carrier"]
                 f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
@@ -467,8 +704,11 @@ class Pipeline:
         run's frames.  The layout is the JAX package's
         (runtime/checkpoint.py), so either package restores the other's
         file (the JAX package ignores ``parsers``; its files restore
-        fresh parsers); the voice decoder states have their slots (aux
-        ``vhost`` / ``vdev_*``) once voice is ported."""
+        fresh parsers).  With voice on it also carries the lazy view's
+        previous-block soft planes (aux ``prev_soft`` / ``prev_nc``) and
+        every carrier's host speech decoder state (aux ``vhost``, extra
+        ``vhost_carriers``), so a call straddling the restart gives the
+        uninterrupted run's audio."""
         from tetraear_tpu_torch.runtime import checkpoint
         layer = self._tails_layer()
         extra = {
@@ -486,8 +726,20 @@ class Pipeline:
         aux = {}
         if self.runner._tail_bits is not None:
             aux["tail_bits"] = self.runner._tail_bits.cpu().numpy()
+        if self.runner._prev_soft is not None:
+            aux["prev_soft"] = self.runner._prev_soft.cpu().numpy()
+            aux["prev_nc"] = np.asarray(self.runner._prev_nc)
         for name in ("_tail_hard", "_tail_soft", "_tail_valid"):
             aux["batch" + name] = np.asarray(getattr(layer, name))
+        # host voice decoder states (stateful LPC/excitation memory)
+        vhost = [(ci, vp.state_bytes())
+                 for ci, vp in sorted(self._voice_states.items())
+                 if vp.stateful]
+        vhost = [(ci, b) for ci, b in vhost if b is not None]
+        if vhost:
+            aux["vhost"] = np.stack(
+                [np.frombuffer(b, np.int16) for _, b in vhost])
+            extra["vhost_carriers"] = [int(ci) for ci, _ in vhost]
         checkpoint.save_state(path, self.state, extra=extra, aux=aux)
 
     def load_checkpoint(self, path) -> None:
@@ -519,6 +771,14 @@ class Pipeline:
         if "tail_bits" in aux:
             self.runner._tail_bits = torch.from_numpy(
                 np.array(aux["tail_bits"], np.uint8)).to(self.device)
+        if "prev_soft" in aux:
+            self.runner._prev_soft = torch.from_numpy(
+                np.array(aux["prev_soft"], np.float32)).to(self.device)
+            self.runner._prev_nc = np.asarray(aux["prev_nc"])
+        if self.voice is not None:
+            for i, ci in enumerate(extra.get("vhost_carriers", [])):
+                self.voice_for(int(ci)).set_state_bytes(
+                    aux["vhost"][i].tobytes())
         layer = self._tails_layer()
         for name in ("_tail_hard", "_tail_soft", "_tail_valid"):
             if "batch" + name in aux:

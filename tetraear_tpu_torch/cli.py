@@ -112,6 +112,9 @@ def _add_common(p: argparse.ArgumentParser, source_default) -> None:
     p.add_argument("--frame-workers", type=int, default=0,
                    help="shard the per-hit frame layer over N worker "
                         "processes (0 = in-process)")
+    p.add_argument("--voice-threads", type=int, default=0,
+                   help="synthesize voice carriers on N threads "
+                        "(0 = sequential)")
     p.add_argument("--max-blocks", type=int,
                    help="stop after N blocks (default: run to EOF)")
     p.add_argument("--show-invalid", action="store_true")
@@ -134,6 +137,7 @@ def _make_pipeline(args, on_frame=None, on_status=None):
         carrier_afc=args.carrier_afc,
         sparse_hits=args.sparse_hits,
         frame_workers=args.frame_workers,
+        voice_threads=args.voice_threads,
         device=args.device,
     )
     return Pipeline(cfg, on_frame=on_frame, on_status=on_status)

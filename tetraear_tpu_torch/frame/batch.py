@@ -331,6 +331,10 @@ class BatchedFrameDecoder:
         self.scan_stride = 2
         self._device = device
         self._kernel = None
+        # the native per-hit parser (frame/csrc) is built with g++ here,
+        # before the first parse imports frame.hitparse
+        from tetraear_tpu_torch import native
+        native.hitparse()
         c = n_carriers
         self._tail_hard = np.zeros((c, self.T), np.uint8)
         self._tail_soft = np.zeros((c, self.T, 2), np.float32)

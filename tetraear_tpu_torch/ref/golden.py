@@ -225,9 +225,55 @@ def golden_voice_iq(pcm_frames: np.ndarray, fs: float = 2.4e6,
     (EN 300 395-2 §5); the encoder state stays continuous so pitch
     tracking across stolen slots is exercised.
     """
-    raise NotImplementedError(
-        "golden_voice_iq needs the voice codec, which is not ported yet "
-        "(ROADMAP.md, modules still to port, item 4: device voice chain)")
+    import ctypes
+
+    from tetraear_tpu_torch.voice import codec as vcodec
+
+    vp = vcodec.VoiceProcessor()
+    if not vp.working:
+        raise RuntimeError("voice codec library not built")
+    lib = vp._lib
+    enc = lib.tetra_speech_encoder_new()
+    rng = np.random.default_rng(seed + 99)
+    slots = []
+    try:
+        pcm_frames = np.asarray(pcm_frames, np.int16)
+        n_slots = len(pcm_frames) // 480
+        for si in range(n_slots):
+            params = np.zeros((2, 138), np.int16)
+            for f in range(2):
+                seg = np.ascontiguousarray(
+                    pcm_frames[si * 480 + f * 240: si * 480 + (f + 1) * 240])
+                lib.tetra_speech_encode(
+                    enc, seg.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                    params[f].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+            if stolen_every and si % stolen_every == stolen_every - 1:
+                soft216 = np.zeros(216, np.int16)
+                lib.tetra_channel_encode_stolen(
+                    np.ascontiguousarray(params[1, 1:]).ctypes.data_as(
+                        ctypes.POINTER(ctypes.c_int16)),
+                    soft216.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+                coded = (soft216 < 0).astype(np.uint8)
+                slots.append(build_stolen_voice_slot(coded, rng=rng))
+                continue
+            block = np.zeros(vcodec.CODEC_BLOCK_WORDS, np.int16)
+            lib.tetra_channel_encode(
+                np.ascontiguousarray(params).ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_int16)),
+                block.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+            # block words -> 432 coded bits (soft +-127 -> hard)
+            soft = np.concatenate([block[1:115], block[116:230],
+                                   block[231:345], block[346:436]])
+            coded = (soft[:432] > 0).astype(np.uint8)
+            slots.append(build_voice_slot(coded, rng=rng))
+    finally:
+        lib.tetra_speech_encoder_free(enc)
+
+    pad = rng.integers(0, 2, lead_in_bits).astype(np.uint8)
+    tail = rng.integers(0, 2, 256).astype(np.uint8)
+    all_bits = np.concatenate([pad] + slots + [tail])
+    return modulator.generate_carrier(
+        all_bits, fs=fs, snr_db=snr_db, rng=np.random.default_rng(seed + 7))
 
 
 def sds_text_payload(text: str, pid: int = 0x82) -> bytes:

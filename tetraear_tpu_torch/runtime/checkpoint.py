@@ -9,9 +9,10 @@ The layout is the JAX package's: ``leaf_<i>`` in ``jax.tree_util``'s
 flatten order (dict keys sorted, lists in order), ``__treedef__``,
 ``__extra__`` (JSON) and ``aux_<name>``.  The port's state trees carry
 the JAX keys, so a checkpoint's leaves line up one to one across the two
-packages.  The structure string is the port's own (it starts with
-``STRUCTURE_TAG``); ``restore_into`` compares it only when the file was
-written by the port, and checks leaf count, shapes and dtypes always.
+packages.  The structure string is the one ``jax.tree_util`` prints for
+the same tree (``str(PyTreeDef)``), so a file of either package restores
+into the other's Pipeline of the same configuration; ``restore_into``
+compares it, and checks leaf count, shapes and dtypes.
 
 ``parser_state`` / ``restore_parser`` carry a frame-layer MAC parser's
 state (network identity, the open fragment chain) as JSON values, for
@@ -25,23 +26,22 @@ import json
 import numpy as np
 import torch
 
-STRUCTURE_TAG = "tetraear_tpu_torch:"
-
-
 def _flatten(state) -> tuple:
-    """(leaves, structure string) in jax.tree_util's order."""
+    """(leaves, structure string) in jax.tree_util's order; the string is
+    str() of the PyTreeDef jax.tree_util makes of the same tree (the
+    port's state trees hold dicts and lists of tensors only)."""
     leaves = []
 
     def walk(node):
         if isinstance(node, dict):
-            return "{" + ",".join(f"{k!r}:{walk(node[k])}"
-                                  for k in sorted(node)) + "}"
-        if isinstance(node, (list, tuple)):
-            return "[" + ",".join(walk(v) for v in node) + "]"
+            return "{" + ", ".join(f"{k!r}: {walk(node[k])}"
+                                   for k in sorted(node)) + "}"
+        if isinstance(node, list):
+            return "[" + ", ".join(walk(v) for v in node) + "]"
         leaves.append(node)
         return "*"
 
-    return leaves, STRUCTURE_TAG + walk(state)
+    return leaves, f"PyTreeDef({walk(state)})"
 
 
 def _unflatten(template, leaves: list):
@@ -105,8 +105,8 @@ def restore_into(template, leaves, saved_treedef: str | None = None):
     """Unflatten checkpoint leaves into the template's tree structure,
     each leaf a tensor on its template leaf's device.
 
-    Validates leaf count, the saved structure string (when the port
-    wrote the file) and per-leaf shapes/dtypes against the template, so
+    Validates leaf count, the saved structure string and per-leaf
+    shapes/dtypes against the template, so
     a checkpoint from a differently-configured pipeline fails with a
     descriptive error instead of mis-restoring state."""
     flat, structure = _flatten(template)
@@ -114,8 +114,7 @@ def restore_into(template, leaves, saved_treedef: str | None = None):
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, pipeline state has "
             f"{len(flat)} — configuration mismatch")
-    if (saved_treedef is not None and saved_treedef.startswith(STRUCTURE_TAG)
-            and saved_treedef != structure):
+    if saved_treedef is not None and saved_treedef != structure:
         raise ValueError(
             "checkpoint tree structure does not match this pipeline "
             f"configuration:\n  saved:    {saved_treedef}\n"

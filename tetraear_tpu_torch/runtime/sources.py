@@ -153,9 +153,54 @@ class SyntheticTetraSource(IQSource):
 
     def _voice_bits(self, seed: int) -> np.ndarray:
         """Four channel-encoded speech slots (requires the codec lib)."""
-        raise NotImplementedError(
-            "the voice source needs the voice codec, which is not "
-            "ported yet (ROADMAP.md, modules still to port, item 4: device voice chain)")
+        import ctypes
+
+        from tetraear_tpu_torch.ref import golden
+        from tetraear_tpu_torch.voice import codec as vcodec
+        vp = vcodec.VoiceProcessor()
+        if not vp.working:
+            raise RuntimeError("voice source requires the codec library")
+        lib = vp._lib
+        rng = np.random.default_rng(seed)
+        n = 4 * 480
+        exc = np.zeros(n)
+        exc[::self.voice_pitch] = 1.0
+        exc += 0.05 * rng.standard_normal(n)
+        y = np.zeros(n)
+        for i in range(n):
+            y[i] = exc[i]
+            if i > 0:
+                y[i] += 1.2 * y[i - 1]
+            if i > 1:
+                y[i] += -0.8 * y[i - 2]
+            if i > 2:
+                y[i] += 0.3 * y[i - 3]
+        pcm = (y / np.max(np.abs(y)) * 8000).astype(np.int16)
+        enc = lib.tetra_speech_encoder_new()
+        slots = []
+        try:
+            for si in range(4):
+                params = np.zeros((2, 138), np.int16)
+                for f in range(2):
+                    seg = np.ascontiguousarray(
+                        pcm[si * 480 + f * 240:si * 480 + (f + 1) * 240])
+                    lib.tetra_speech_encode(
+                        enc,
+                        seg.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                        params[f].ctypes.data_as(
+                            ctypes.POINTER(ctypes.c_int16)))
+                block = np.zeros(vcodec.CODEC_BLOCK_WORDS, np.int16)
+                lib.tetra_channel_encode(
+                    np.ascontiguousarray(params).ctypes.data_as(
+                        ctypes.POINTER(ctypes.c_int16)),
+                    block.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+                soft = np.concatenate([block[1:115], block[116:230],
+                                       block[231:345], block[346:436]])
+                slots.append(golden.build_voice_slot(
+                    (soft[:432] > 0).astype(np.uint8), rng=rng))
+        finally:
+            lib.tetra_speech_encoder_free(enc)
+        return np.concatenate(slots)
 
     def _generate_chunk(self) -> np.ndarray:
         from tetraear_tpu_torch.ref import golden, modulator

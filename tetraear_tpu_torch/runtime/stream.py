@@ -83,6 +83,82 @@ def _to_host(tensors: list) -> tuple:
     return host, ev
 
 
+class LazySoftRows:
+    """Device-resident soft-symbol view over [tail ++ block] rows.
+
+    The voice path reads the soft planes only at the decoded frames'
+    255-symbol windows.  This view leaves the current and the previous
+    block's (C, K, 2) soft planes on the device and fetches whole rows
+    for exactly the carriers that decoded frames: one ``index_select`` and
+    one ``.cpu()`` a source a block.
+
+    Coordinate contract (frame.batch.SoftView's): ``slice(ci, a)``
+    returns what ``concat([tail, block])[ci, a:a+n]`` would.  In steady
+    state the T-symbol tail equals the previous block's last T valid
+    symbols, prev[ci, o_prev[ci]-T : o_prev[ci]] (the tail update of
+    BatchedFrameDecoder.assemble), which needs every block's valid count
+    to be at least T: DecodeRunner takes this view only when
+    k_max - 2 >= T.
+
+    ``prefetch(pairs)`` is called with every (carrier, a) that will be
+    sliced and issues the batched row gathers; ``slice`` then serves from
+    the row cache (fetching a single row where a pair was not
+    prefetched).  Values are bitwise those of the dense fetch.
+    """
+
+    def __init__(self, prev, cur, o_prev: np.ndarray, t: int):
+        self.prev = prev                  # device (C, K, 2) or None
+        self.cur = cur                    # device (C, K, 2)
+        # (C,) prev-block valid counts (None only at the stream head,
+        # where the tail region is zeros and gated off anyway)
+        self.o_prev = None if o_prev is None else np.asarray(o_prev)
+        self.T = int(t)
+        self._rows: dict = {}             # (src, ci) -> (K, 2) np row
+
+    @staticmethod
+    def _gather(src, rows: list) -> dict:
+        """One row gather + fetch; returns {row: np row}."""
+        uniq = sorted(set(rows))
+        idx = torch.tensor(uniq, dtype=torch.int64, device=src.device)
+        got = torch.index_select(src, 0, idx).cpu().numpy()
+        return {r: got[i] for i, r in enumerate(uniq)}
+
+    def prefetch(self, pairs) -> None:
+        need = {0: [], 1: []}             # 0 = prev, 1 = cur
+        for ci, a in pairs:
+            ci = int(ci)
+            if a < self.T and (0, ci) not in self._rows:
+                need[0].append(ci)
+            if (1, ci) not in self._rows:
+                need[1].append(ci)
+        if need[0] and self.prev is not None:
+            for r, row in self._gather(self.prev, need[0]).items():
+                self._rows[(0, r)] = row
+        if need[1]:
+            for r, row in self._gather(self.cur, need[1]).items():
+                self._rows[(1, r)] = row
+
+    def _row(self, src: int, ci: int) -> np.ndarray:
+        key = (src, ci)
+        if key not in self._rows:        # a pair that was not prefetched
+            arr = self.prev if src == 0 else self.cur
+            self._rows[key] = arr[ci].cpu().numpy()
+        return self._rows[key]
+
+    def slice(self, ci: int, a: int, n: int = 255) -> np.ndarray:
+        t = self.T
+        if a >= t:
+            return self._row(1, ci)[a - t:a - t + n]
+        if self.prev is not None:
+            o = int(self.o_prev[ci])
+            tail = self._row(0, ci)[o - t:o]
+        else:                    # stream head: tail region is zeros
+            tail = np.zeros((t, 2), np.float32)
+        if a + n <= t:
+            return tail[a:a + n]
+        return np.concatenate([tail[a:], self._row(1, ci)[:a + n - t]])
+
+
 class ScanRunner:
     """Demodulate many blocks per batch, carrying the bank state."""
 
@@ -151,13 +227,15 @@ class DecodeRunner:
     the JAX package's TETRAEAR_NO_FUSED / TETRAEAR_NO_PALLAS_SCAN
     switches.  ``step`` is the one per-block device step: ``run``
     chains it over S-block batches, ``api.Pipeline.process_block`` calls
-    it block by block.  Soft symbols are not fetched (they serve the
-    voice path, which is not ported)."""
+    it block by block.  ``fetch_soft`` adds each block's (C, K, 2) soft
+    symbols, which the voice path reads: in sparse mode they stay on the
+    device behind a ``LazySoftRows`` view (k_max - 2 >= T), otherwise
+    they are fetched whole."""
 
     def __init__(self, bank, batch, blocks_per_dispatch: int = 16,
                  device=None, sparse: bool | None = None,
                  sparse_k: int | None = None, fused: bool = True,
-                 kernel_scan: bool = True):
+                 kernel_scan: bool = True, fetch_soft: bool = False):
         self.bank = bank
         self.batch = batch
         self.s = int(blocks_per_dispatch)
@@ -171,6 +249,11 @@ class DecodeRunner:
         self.kernel_scan = bool(kernel_scan)
         self.k = bank.k_max
         self.t2 = 2 * batch.T                 # carried tail bits
+        self.fetch_soft = bool(fetch_soft)
+        self.lazy_soft = (self.sparse and self.fetch_soft
+                          and self.k - 2 >= batch.T)
+        self._prev_soft = None                # device (C, K, 2)
+        self._prev_nc = None                  # (C,) its valid counts
         self._pe_n, self._pc_n = framescan.plane_dims(self.t2 + 2 * self.k)
         if batch.scan_stride != 2:
             raise ValueError("the device scan is even-position only")
@@ -201,6 +284,8 @@ class DecodeRunner:
         batch._first = False
         self.batch = batch
         self._tail_bits = None
+        self._prev_soft = None
+        self._prev_nc = None
 
     def _scan_outputs(self, corr, crc_err) -> tuple:
         """Per-block scan results to fetch: dense verdict planes, or the
@@ -222,9 +307,11 @@ class DecodeRunner:
         k_r = torch.arange(self.k, device=self.device)[None, :]
         valid = k_r < n_valid[:, None]
         scan_out = self._scan_outputs(out["corr"], out["crc_err"])
+        soft_out = (soft,) if self.fetch_soft else ()
         if self.sparse:
-            return (masked_pack(hard, valid), n_valid, *scan_out), state
-        return (hard, valid, *scan_out), state
+            return (masked_pack(hard, valid), n_valid, *scan_out,
+                    *soft_out), state
+        return (hard, valid, *scan_out, *soft_out), state
 
     def _block_classic(self, x_r: torch.Tensor, state: dict,
                        tail_bits: torch.Tensor) -> tuple:
@@ -232,14 +319,15 @@ class DecodeRunner:
         scan, state, tail_bits, n_c, out = block_step_scan(
             self.bank, x_r, state, tail_bits, self.kernel_scan)
         scan_out = self._scan_outputs(scan["corr"], scan["crc_err"])
+        soft_out = (out["soft"],) if self.fetch_soft else ()
         if self.sparse:
             # compact transfer: packed symbols + valid COUNTS (the
             # masked symbols and the contiguous-validity invariant make
             # the host reconstruction exact — see pack_syms)
             ys = (masked_pack(out["hard"], out["valid"]),
-                  n_c.to(torch.int32), *scan_out)
+                  n_c.to(torch.int32), *scan_out, *soft_out)
         else:
-            ys = (out["hard"], out["valid"], *scan_out)
+            ys = (out["hard"], out["valid"], *scan_out, *soft_out)
         return ys, state, tail_bits
 
     def ingest(self, xs: np.ndarray) -> torch.Tensor:
@@ -278,16 +366,30 @@ class DecodeRunner:
                                                          self._tail_bits)
         return ys, state
 
+    def fetch(self, ys: tuple) -> tuple:
+        """One block's step outputs -> what ``frames_of`` takes: numpy
+        arrays, except the soft symbols of the lazy view, which stay on
+        the device."""
+        host = tuple(t.cpu().numpy() for t in ys[:4])
+        if not self.fetch_soft:
+            return host
+        return host + ((ys[4] if self.lazy_soft else ys[4].cpu().numpy()),)
+
     def frames_of(self, host: tuple) -> list:
-        """One block's fetched step outputs (numpy) -> decoded frames,
+        """One block's fetched step outputs (``fetch``) -> decoded frames,
         through the frame layer's sparse or dense entry point."""
-        hard, valid, scan_a, scan_b = host
+        hard, valid, scan_a, scan_b = host[:4]
+        soft = host[4] if self.fetch_soft else None
         if self.sparse:
             hard_b, valid_b = unpack_block(hard, valid, self.k)
+            if self.lazy_soft:
+                soft, cur = LazySoftRows(self._prev_soft, soft,
+                                         self._prev_nc, self.batch.T), soft
+                self._prev_soft, self._prev_nc = cur, valid
             return self.batch.process_scanned_sparse(
-                hard_b, None, valid_b, scan_a, scan_b, self._pe_n,
+                hard_b, soft, valid_b, scan_a, scan_b, self._pe_n,
                 self._pc_n)
-        return self.batch.process_scanned(hard, None, valid.astype(bool),
+        return self.batch.process_scanned(hard, soft, valid.astype(bool),
                                           scan_a, scan_b)
 
     def run(self, iq: np.ndarray, state=None, on_frames=None) -> dict:
@@ -299,12 +401,13 @@ class DecodeRunner:
             state = self.init_state()
         frames_all = []
 
-        def parse(take, host, event):
+        def parse(take, host, event, lazy):
             if event is not None:
                 event.synchronize()
             arrays = [t.numpy() for t in host]
             for b in range(take):
-                frames = self.frames_of(tuple(a[b] for a in arrays))
+                frames = self.frames_of(tuple(a[b] for a in arrays)
+                                        + lazy[b:b + 1])
                 if frames and on_frames:
                     on_frames(frames)
                 frames_all.extend(frames)
@@ -318,11 +421,14 @@ class DecodeRunner:
             for b in range(take):
                 y, state = self.step(xs_d[b], state)
                 ys.append(y)
-            host, event = _to_host([torch.stack(col) for col in zip(*ys)])
+            cols = list(zip(*ys))
+            # the lazy view's soft planes stay on the device
+            lazy = cols.pop() if self.lazy_soft else ()
+            host, event = _to_host([torch.stack(col) for col in cols])
             self.dispatches += 1
             if pending is not None:
                 parse(*pending)
-            pending = (take, host, event)
+            pending = (take, host, event, lazy)
             pos += take * bl
         if pending is not None:
             parse(*pending)
