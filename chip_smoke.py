@@ -45,14 +45,21 @@ port's receive paths on the card in phases, one line per result:
      (fleet-afc, fleet-aligned, bench-afc), with launches per block.
 
 Voice: viterbi_decode against its plain version at B = 8192 and 81920
-(and the C++ decoder on 256 blocks); voice fleet, 16 voice carriers at
-C=1024 on the fused path through process_block (unsplit with sequential
+(and the C++ decoder on 256 blocks); speech, acelp_decode against its
+plain version (PCM and every state leaf) and the C++ decoder at S = 256
+and 2048 decoder slots x 4 frames, two calls that carry the state, beside
+the host C++ codec's time on the same frames (one core and a thread a
+core); voice fleet, 16 voice carriers at C=1024 on the fused path
+through process_block with host synthesis (unsplit with sequential
 synthesis, and split by a checkpoint with two synthesis threads): every
 voice carrier's parameters equal to the encoder's, its PCM equal to a
 fresh host decoder's, both runs equal, every viterbi_decode launch held
-against the plain version on its inputs; voice rtl, two voice carriers on
-the classic chain through run_offline, the card's PCM equal to the CPU
-run's.
+against the plain version on its inputs; voice fleet device, the same
+with synthesis on the card (device_voice=True), unsplit and split equal
+to host synthesis, and with 8 decoder slots each evicted carrier's PCM
+equal to a host decoder restarted with it; voice rtl, two voice carriers
+on the classic chain through run_offline, the card's PCM with host and
+with device synthesis equal to the CPU run's.
 
 Beside these: tea, the key search (tea_search) against its plain version
 at a large deferred decryption and a bruteforce sweep, and again at each
@@ -114,6 +121,9 @@ KERNELS = {
     # the reference's speech channel decoder is XLA too: its lax.scan
     "viterbi_decode": (CSRC + "viterbi.cu",
                        "tetraear_tpu/voice/jviterbi.py:72"),
+    # and its speech decoder: lax.scans over samples around basicops
+    "acelp_decode": (CSRC + "speech.cu",
+                     "tetraear_tpu/voice/jspeech.py:564"),
 }
 FUSED_KERNELS = ("fft2p", "band_synth", "fused_backhalf")
 
@@ -2017,6 +2027,371 @@ def record_viterbi_calls(calls: list):
     return undo
 
 
+# V2: slots x frames of the two sizes (F = 4 frames a call, two calls
+# that carry the state); 2048 is the fleet size of the reference's voice
+# bench (BENCH_MODE=voice)
+V2_SIZES = (256, 2048)
+V2_FRAMES = 4
+# Instructions of acelp_decode (one thread a slot), counted from the
+# kernel's SASS (cuobjdump -sass of the built library, sm_90a, CUDA 12):
+# each loop body's instructions times its iterations a frame.  The SASS
+# they were counted from, its instruction count and its loop bodies
+# (backward branches) in address order; check_acelp_sass fails the run
+# where the built kernel's differ, so that the count cannot go stale.
+V2_SASS_INSTRUCTIONS = 11792
+V2_SASS_LOOPS = (186, 11086) + (53, 18) * 22 + (
+    55, 19, 800, 198, 105, 199, 108, 202, 108, 202, 108, 4937, 306, 306,
+    141, 55, 187, 177, 4, 11, 4, 11, 4, 12, 4, 11, 12, 12, 177, 203, 121, 1)
+# every decoded frame (BFI or not):
+#   Bits2prm: per parameter of nb bits, nb // 4 x 53 + nb % 4 x 18   1,953
+#   the frame's straight code (D_Lsp334, pitch, copies)              3,106
+#   Int_Lpc4 + Lsp_Az: 3 x (403 + the two Get_Lsp_Pol nests 198 and
+#     199 around 105 and 108: 4 outer + 10 inner iterations each)
+#     + 2 x (the nest 202 around 108)                              12,719
+#   the PCM store (32 samples an iteration, 203)                     1,523
+#   each of 4 subframes: straight code 3,503 (the energy sums, the
+#     excitation update, the frac = 0 copy, unrolled), Syn_Filt of the
+#     impulse response 30 x 141, D_D4i60 15 x 187, Lpc_Gain's filter
+#     and the synthesis filter 30 x 177 each, sharpening and the norm /
+#     shift loops about 450                                  4 x 21,608
+V2_INSTR_FRAME = (
+    1953 + 3106
+    + 3 * (403 + 4 * (198 - 105) + 10 * 105 + 4 * (199 - 108) + 10 * 108)
+    + 2 * (4 * (202 - 108) + 10 * 108) + 1523
+    + 4 * (3503 + 30 * 141 + 15 * 187 + 2 * 30 * 177 + 450))
+# and each subframe whose pitch lag has a fraction (frac = +-1, never in
+# a BFI frame): Pred_Lt's interpolation, 60 x 306
+V2_INSTR_FRAC = 60 * 306
+# the loop bodies the two counts are made of
+V2_MODEL_LOOPS = (53, 18, 198, 105, 199, 108, 202, 203, 141, 187, 177, 306)
+V2_CORNERS = ((255, (31, 30, 0)), (196, (30, 15, 31)), (197, (0, 30, 1)),
+              (0, (15, 31, 30)), (255, (30, 0, 31)))
+
+
+def speech_inputs(s: int, n: int, seed: int) -> tuple:
+    """(s, n, 138) int32 frames and (s, n) bool valid: random bits with
+    about one BFI in 8, every 16th slot a pitch-lag corner stream (t0 =
+    143 with frac = +1, the index 196 / 197 boundary, t0 = 19, and t0 =
+    144 followed by BFI frames that keep it), every 8th a first frame
+    and a run of BFI, every 32nd all BFI, and 5% holes in valid."""
+    import numpy as np
+    from tetraear_tpu_torch.voice import acelp_tables as T
+    from tetraear_tpu_torch.voice import speech
+    rng = np.random.default_rng(seed)
+    fr = rng.integers(0, 2, (s, n, 138)).astype(np.int32)
+    fr[:, :, 0] = rng.random((s, n)) < 0.125
+    for k, r in enumerate(range(0, s, 16)):
+        p1, deltas = V2_CORNERS[k % len(V2_CORNERS)]
+        prm = np.zeros((n, 24), np.int64)
+        prm[:, 1:] = [rng.integers(0, 1 << int(nb)) for nb in T.BITNO]
+        prm[:, 4] = p1
+        prm[:, 9], prm[:, 14], prm[:, 19] = deltas
+        prm[1::2, 0] = p1 == 255 and deltas[2] == 31
+        fr[r] = speech.prm2bits(prm)
+    fr[3::8, 0, 0] = 1
+    fr[3::8, 1:4, 0] = 1
+    fr[5::32, :, 0] = 1
+    valid = rng.random((s, n)) > 0.05
+    return fr, valid
+
+
+def cpp_speech(frames, valid, threads: int = 1) -> tuple:
+    """Each slot's valid frames through its own fresh C++ decoder
+    (tetra_speech_decode_many), on one thread or on ``threads`` threads
+    that take every threads-th slot each: ((s, n, 240) int32 PCM with
+    zeros where not valid, wall seconds)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from tetraear_tpu_torch import native
+    lib = native.codec()._LIB
+    ptr = ctypes.POINTER(ctypes.c_int16)
+    out = np.zeros(frames.shape[:2] + (240,), np.int32)
+    inputs = [np.ascontiguousarray(frames[i][valid[i]].astype(np.int16))
+              for i in range(len(frames))]
+
+    def one(i):
+        fr = inputs[i]
+        pcm = np.zeros((len(fr), 240), np.int16)
+        dec = lib.tetra_speech_decoder_new()
+        try:
+            if len(fr) and lib.tetra_speech_decode_many(
+                    dec, fr.ctypes.data_as(ptr), len(fr),
+                    pcm.ctypes.data_as(ptr)):
+                raise RuntimeError(f"C++ decoder failed on slot {i}")
+        finally:
+            lib.tetra_speech_decoder_free(dec)
+        return pcm
+
+    def share(k):
+        return [one(i) for i in range(k, len(frames), threads)]
+
+    t0 = time.perf_counter()
+    if threads > 1:
+        with ThreadPoolExecutor(threads) as pool:
+            parts = list(pool.map(share, range(threads)))
+        pcms = [parts[i % threads][i // threads] for i in range(len(frames))]
+    else:
+        pcms = [one(i) for i in range(len(frames))]
+    wall = time.perf_counter() - t0
+    for i, pcm in enumerate(pcms):
+        out[i][valid[i]] = pcm
+    return out, wall
+
+
+def check_speech(what: str, st, fr, valid) -> tuple:
+    """The kernel's state and PCM for one call equal the plain version's
+    on the same card; returns (new state, PCM)."""
+    import torch
+    from tetraear_tpu_torch.voice import speech
+    new, pcm = speech.decode_block(st, fr, valid)
+    new_p, pcm_p = speech.decode_block_plain(st, fr, valid)
+    bad = [n for n, a, b in zip(speech.SpeechState._fields, new, new_p)
+           if not torch.equal(a, b)]
+    if bad or not torch.equal(pcm, pcm_p):
+        fail(f"acelp_decode {what}: {(pcm != pcm_p).sum().item()} PCM "
+             f"samples and the state leaves {bad} differ from the plain "
+             f"version")
+    return new, pcm
+
+
+def record_speech_calls(calls: list):
+    """Wrap voice.speech.decode_block so that each launch the pool makes
+    lands in ``calls`` as (state before, frames, valid, rows, new state,
+    PCM); returns the undo.  The wrapper changes no state it is given, so
+    the tensors are kept as they are."""
+    from tetraear_tpu_torch.voice import speech
+    orig = speech.decode_block
+
+    def recording(state, frames, valid, rows=None):
+        new, pcm = orig(state, frames, valid, rows)
+        calls.append((state, frames, valid, rows, new, pcm))
+        return new, pcm
+
+    speech.decode_block = recording
+
+    def undo():
+        speech.decode_block = orig
+    return undo
+
+
+def reset_before(calls: list, i: int) -> int:
+    """How many slots the pool reset (evicted) between launch i - 1 and
+    launch i: the rows whose state launch i got differs from what launch
+    i - 1 left."""
+    import torch
+    if i == 0:
+        return 0
+    prev, before = calls[i - 1][4], calls[i][0]
+    differ = torch.zeros(len(before.old_t0), dtype=torch.bool,
+                         device=before.old_t0.device)
+    for a, b in zip(prev, before):
+        differ |= (a != b).reshape(len(differ), -1).any(dim=1)
+    return int(differ.sum())
+
+
+def check_pool_launch(what: str, call) -> None:
+    """One acelp_decode launch of the pool against the plain version on
+    the same inputs: the PCM and every state leaf of the launch's rows,
+    and every other row of the bank unchanged."""
+    import torch
+    from tetraear_tpu_torch.voice import speech
+    before, frames, valid, rows, new, pcm = call
+    idx = rows.to(before.old_t0.device).long()
+    sub, pcm_p = speech.decode_block_plain(
+        speech.SpeechState(*(x[idx] for x in before)), frames, valid)
+    rest = torch.ones(len(before.old_t0), dtype=torch.bool,
+                      device=idx.device)
+    rest[idx] = False
+    bad = [n for n, a, b, p in zip(speech.SpeechState._fields, new, before,
+                                   sub)
+           if not torch.equal(a[idx], p) or not torch.equal(a[rest],
+                                                            b[rest])]
+    if bad or not torch.equal(pcm, pcm_p):
+        fail(f"acelp_decode {what} (A={len(idx)} of {len(rest)} slots, "
+             f"F={frames.shape[1]}): {(pcm != pcm_p).sum().item()} PCM "
+             f"samples and the state leaves {bad} differ from the plain "
+             f"version on the launch's rows or changed other rows")
+
+
+# the kernel alone at more slot counts: one slot, a warp, a warp on each
+# SM, four warps on each SM
+V2_SWEEP = (1, 32, 132 * 32, 132 * 128)
+
+
+def acelp_sass() -> dict:
+    """acelp_kernel's SASS in the built library (cuobjdump -sass): its
+    instruction count and each loop's (backward branch's) start address
+    and body size."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    tool = Path(ck._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", ck.build_info["path"]],
+                         capture_output=True, text=True, timeout=300).stdout
+    start = out.index("Function : ", out.index("acelp_kernel") - 200)
+    end = out.find("Function : ", start + 10)
+    body = out[start:end if end > 0 else len(out)]
+    ins = [(int(a, 16), t) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), (addr - int(m.group(1), 16))
+                          // 16 + 1))
+    return {"instructions": len(ins), "loops": sorted(loops)}
+
+
+def check_acelp_sass(sass: dict) -> None:
+    """The built kernel's SASS is the one V2_INSTR_FRAME and
+    V2_INSTR_FRAC were counted from: the same instruction count and loop
+    bodies, every body of the count among them."""
+    bodies = tuple(n for _, n in sass["loops"])
+    missing = sorted(set(V2_MODEL_LOOPS) - set(bodies))
+    if (sass["instructions"] != V2_SASS_INSTRUCTIONS
+            or bodies != V2_SASS_LOOPS or missing):
+        fail(f"acelp_kernel's SASS changed ({sass['instructions']} "
+             f"instructions, loop bodies {bodies}; counted from "
+             f"{V2_SASS_INSTRUCTIONS} and {V2_SASS_LOOPS}, bodies "
+             f"{missing} of the count gone): recount V2_INSTR_FRAME and "
+             f"V2_INSTR_FRAC")
+
+
+def v2_instructions(fr, valid) -> tuple:
+    """The instructions acelp_decode runs on these frames (V2_INSTR_FRAME
+    a valid frame, V2_INSTR_FRAC more a subframe whose lag has a
+    fraction, from each frame's pitch indices as jspeech.decode_frame
+    reads them); returns (instructions, those subframes' share)."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.voice import speech
+    prm = speech.bits2prm(torch.from_numpy(np.asarray(fr))).numpy()
+    good = np.asarray(valid) & (prm[..., 0] == 0)   # a BFI frame: frac 0
+    idx = prm[..., [4, 9, 14, 19]]
+    t0 = ((idx[..., 0] + 2) * 0x2AAB >> 15) + 19
+    frac = np.empty_like(idx)
+    frac[..., 0] = np.where(idx[..., 0] <= 196, idx[..., 0] + 58 - 3 * t0, 0)
+    tmp = ((idx[..., 1:] + 2) * 0x2AAB >> 15) - 1
+    frac[..., 1:] = idx[..., 1:] - (3 * tmp + 2)
+    n_frac = int(((frac != 0) & good[..., None]).sum())
+    n_frames = int(np.asarray(valid).sum())
+    return (n_frames * V2_INSTR_FRAME + n_frac * V2_INSTR_FRAC,
+            n_frac / max(4 * n_frames, 1))
+
+
+def phase_speech(seed: int, reps: int) -> dict:
+    """acelp_decode at S = 256 and 2048 slots x F = 4 frames: two calls
+    that carry the state, each held against the plain version (PCM and
+    every state leaf) and both against the C++ decoder on every slot;
+    kernel, plain, host C++ (one core, and a thread a core) and bound
+    times of one call (the bound from the SASS's instruction counts and
+    the call's own frames), and the latency floor (one slot).  Returns
+    {S: result}."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.voice import speech
+    res = {}
+    if not REHEARSE:
+        res["sass"] = acelp_sass()
+        check_acelp_sass(res["sass"])
+        say(f"acelp_kernel SASS: {res['sass']['instructions']} "
+            f"instructions and loop bodies as counted; {V2_INSTR_FRAME} "
+            f"instructions a valid frame, {V2_INSTR_FRAC} more a subframe "
+            f"with a fractional lag")
+    threads = os.cpu_count() or 1
+    for s in V2_SIZES:
+        s = 16 * s // 256 if REHEARSE else s
+        n = V2_FRAMES
+        fr, valid = speech_inputs(s, 2 * n, seed + s)
+        t_fr = torch.from_numpy(fr).to(DEV)
+        t_v = torch.from_numpy(valid).to(DEV)
+        st0 = speech.init_state(s, DEV)
+        calls = [(t_fr[:, :n].contiguous(), t_v[:, :n].contiguous()),
+                 (t_fr[:, n:].contiguous(), t_v[:, n:].contiguous())]
+        st, pcms = st0, []
+        for k, (f_k, v_k) in enumerate(calls):
+            st, pcm = check_speech(f"S={s} call {k + 1}", st, f_k, v_k)
+            pcms.append(pcm)
+        got = torch.cat(pcms, dim=1).cpu().numpy()
+        want, _ = cpp_speech(fr, valid, threads)
+        if not np.array_equal(got, want):
+            bad = np.nonzero((got != want).any(axis=(1, 2)))[0]
+            fail(f"acelp_decode S={s}: slots {bad[:8].tolist()} (of "
+                 f"{len(bad)}) differ from the C++ decoder over two calls")
+        f1, v1 = calls[0]
+        _, one_core = cpp_speech(fr[:, :n], valid[:, :n], 1)
+        _, multi = cpp_speech(fr[:, :n], valid[:, :n], threads)
+        frames_1 = int(valid[:, :n].sum())
+        instr, frac_share = v2_instructions(fr[:, :n], valid[:, :n])
+        st1 = speech.init_state(1, DEV)
+        v_one = torch.ones_like(v1[:1])
+        r = {"max_abs_err": 0.0, "tol": 0.0, "slots": s, "frames": n,
+             "decoded_frames": frames_1,
+             "bfi_frames": int((fr[:, :n, 0] != 0)[valid[:, :n]].sum()),
+             "ms": event_ms(lambda: speech.decode_block(st0, f1, v1), reps),
+             "plain_ms": event_ms(
+                 lambda: speech.decode_block_plain(st0, f1, v1), 1),
+             "host_ms": one_core * 1e3, "host_threads": threads,
+             "host_threads_ms": multi * 1e3,
+             "latency_ms": event_ms(lambda: speech.decode_block(
+                 st1, f1[:1].contiguous(), v_one), reps),
+             "library_ms": None, "frac_subframe_share": frac_share,
+             **bound(nbytes(f1, v1) + 2 * nbytes(*st0) + s * n * 240 * 4,
+                     0.0, issue=instr)}
+        res[s] = r
+        say(f"kernel acelp_decode S={s} F={n}: PCM and state bit-equal to "
+            f"the plain version over two calls, every slot equal to the C++ "
+            f"decoder ({r['decoded_frames']} frames a call, "
+            f"{r['bfi_frames']} BFI); {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, host C++ {r['host_ms']:.2f} ms on one "
+            f"core and {r['host_threads_ms']:.2f} ms on {threads} threads, "
+            f"library call none, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['ops']:.3e} integer instructions at "
+            f"{ISSUE_PER_CLK_SM:.0f} a clock an SM, {frac_share:.3f} of the "
+            f"subframes with a fractional lag), latency floor "
+            f"{r['latency_ms']:.4f} ms (one slot, {n} frames)")
+        del t_fr, t_v, st0, st, calls
+    sweep = {}
+    for s in V2_SWEEP:
+        s = min(s, 64) if REHEARSE else s
+        fr, valid = speech_inputs(s, V2_FRAMES, seed + 1)
+        t_fr = torch.from_numpy(fr).to(DEV)
+        t_v = torch.ones(valid.shape, dtype=torch.bool, device=DEV)
+        st0 = speech.init_state(s, DEV)
+        sweep[s] = event_ms(lambda: speech.decode_block(st0, t_fr, t_v),
+                            reps)
+    say(f"kernel acelp_decode alone, F={V2_FRAMES} every frame valid: "
+        + ", ".join(f"S={s} {ms:.4f} ms" for s, ms in sweep.items()))
+    res["sweep_ms"] = sweep
+    sync()
+    return res
+
+
+def acelp_entry(sp: dict, voice_dev: dict) -> dict:
+    """The kernels line's acelp_decode entry: S = 256 as its numbers,
+    S = 2048 and the voice fleet's launches beside them."""
+    src, replaces = KERNELS["acelp_decode"]
+    (s1, r1), (s2, r2) = sorted((s, r) for s, r in sp.items()
+                                if isinstance(s, int))
+    return {"name": "acelp_decode", "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": voice_dev["launches"]["acelp_decode"],
+            "max_abs_err": 0.0, "ms": r1["ms"], "plain_ms": r1["plain_ms"],
+            "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
+            "library_ms": None, "bound_bytes": r1["bytes"],
+            "bound_ops": r1["ops"],
+            "shape": f"S={s1} slots x F={r1['frames']} frames",
+            "host_ms": r1["host_ms"],
+            "host_threads_ms": r1["host_threads_ms"],
+            "latency_ms": r1["latency_ms"],
+            f"ms_s{s2}": r2["ms"], f"plain_ms_s{s2}": r2["plain_ms"],
+            f"bound_ms_s{s2}": r2["bound_ms"],
+            f"bound_by_s{s2}": r2["bound_by"],
+            f"host_ms_s{s2}": r2["host_ms"],
+            f"host_threads_ms_s{s2}": r2["host_threads_ms"],
+            f"latency_ms_s{s2}": r2["latency_ms"],
+            "path_calls": voice_dev["result"]["pool_call_sizes"]}
+
+
 class VoiceLog:
     """What a voice Pipeline synthesized, by carrier: the channel decoder
     output each voice candidate was synthesized from (the batched
@@ -2031,10 +2406,15 @@ class VoiceLog:
         self.params: dict = {}
         self.audio: dict = {}
         self.synth_s = 0.0
+        self.pass_s = 0.0
+        self.pool_items: list = []
+        self.pool_fresh: list = []
+        self.pool_calls: list = []
         self._last = None
 
     def attach(self, pipe) -> None:
         orig = pipe._try_voice
+        orig_pass = pipe._synth_voice
 
         def hooked(frame):
             if pipe._is_voice_candidate(frame):
@@ -2046,7 +2426,30 @@ class VoiceLog:
             orig(frame)
             self.synth_s += time.perf_counter() - t0
 
+        def hooked_pass(frames):
+            t0 = time.perf_counter()
+            orig_pass(frames)
+            self.pass_s += time.perf_counter() - t0
+
         pipe._try_voice = hooked
+        pipe._synth_voice = hooked_pass
+        pool = pipe._voice_device
+        if pool is not None:
+            # each item the pool synthesizes, and whether its carrier had
+            # no slot (a fresh decoder) when it came
+            orig_slot, orig_synth = pool._slot_for, pool.synthesize
+
+            def slot_for(carrier, reset):
+                self.pool_fresh.append(carrier not in pool._map)
+                return orig_slot(carrier, reset)
+
+            def synthesize(items):
+                self.pool_items.extend(items)
+                self.pool_calls.append(len(items))
+                return orig_synth(items)
+
+            pool._slot_for = slot_for
+            pool.synthesize = synthesize
 
     def _params_of(self, frame):
         if "_voice_params" in frame:
@@ -2082,19 +2485,26 @@ def voice_carriers(c: int) -> dict:
 
 
 def voice_stream_run(setup: dict, split: bool, threads: int,
-                     calls: list | None = None) -> tuple:
+                     calls: list | None = None,
+                     speech_calls: list | None = None, **extra) -> tuple:
     """process_block over the voice capture, unsplit or with a checkpoint
-    after block 2 onto a fresh Pipeline; returns (VoiceLog, launches,
-    process_block ms of each block, stats)."""
+    after block 2 onto a fresh Pipeline, host synthesis unless ``extra``
+    says device_voice=True; the viterbi_decode and acelp_decode launches
+    land in ``calls`` and ``speech_calls`` where given.  Returns
+    (VoiceLog, launches, process_block ms of each block, stats)."""
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
     bl = setup["block_len"]
     blocks = [setup["iq"][i * bl:(i + 1) * bl]
               for i in range(len(setup["iq"]) // bl)]
     log = VoiceLog()
-    cfg = dict(FUSED_CFG, voice=True, voice_threads=threads)
+    cfg = dict(FUSED_CFG, voice=True, voice_threads=threads,
+               device_voice=False)
+    cfg.update(extra)
     path = ROOT / "build" / "chip_smoke_voice.npz"
     path.parent.mkdir(exist_ok=True)
-    undo = record_viterbi_calls(calls) if calls is not None else None
+    undos = ([record_viterbi_calls(calls)] if calls is not None else []) + (
+        [record_speech_calls(speech_calls)] if speech_calls is not None
+        else [])
     ms = []
     ck.reset_launches()
     pipe = stream_pipeline(setup, 0, log.on_frame, log.on_audio, **cfg)
@@ -2116,7 +2526,7 @@ def voice_stream_run(setup: dict, split: bool, threads: int,
         stats = pipe.stats
     finally:
         pipe.close()
-        if undo is not None:
+        for undo in undos:
             undo()
     if split:
         path.unlink()
@@ -2147,6 +2557,7 @@ def phase_voice_fleet(c: int, nfft: int | None, n_blocks: int,
     made = time.time() - t0
     calls = []
     t0 = time.time()
+    # host synthesis: the reference run of phase_voice_fleet_device
     log, counts, ms, stats = voice_stream_run(setup, False, 0, calls)
     wall = time.time() - t0
     log2, counts2, _, stats2 = voice_stream_run(setup, True, 2)
@@ -2220,7 +2631,177 @@ def phase_voice_fleet(c: int, nfft: int | None, n_blocks: int,
         f"host synthesis {r['host_synthesis_ms_per_block']:.2f} ms/block; "
         f"launches { {k: v for k, v in counts.items() if v} }; capture "
         f"made in {made:.1f} s")
-    del calls, setup, iq
+    del calls
+    return {"result": r, "launches": counts, "setup": setup, "log": log,
+            "stats": stats}
+
+
+def same_voice(a, b) -> bool:
+    """Two VoiceLogs' audio: the same carriers, frames (stream symbols)
+    and PCM."""
+    import numpy as np
+    return sorted(a.audio) == sorted(b.audio) and all(
+        [s for s, _ in a.audio[c]] == [s for s, _ in b.audio[c]]
+        and all(np.array_equal(x, y) for (_, x), (_, y)
+                in zip(a.audio[c], b.audio[c])) for c in a.audio)
+
+
+def check_evictions(log) -> int:
+    """Each carrier's audio in a device-voice run equals a host decoder's
+    that restarts fresh whenever the pool gave the carrier a slot anew
+    (its first use, or after its slot was evicted); returns the number of
+    restarts after a first use."""
+    import numpy as np
+    decs, want, seen, restarts = {}, {}, set(), 0
+    for (ci, params), fresh in zip(log.pool_items, log.pool_fresh):
+        if fresh:
+            decs[ci] = log.codec.VoiceProcessor()
+            restarts += ci in seen
+            seen.add(ci)
+        slots = np.asarray(params).reshape(-1, 2, params.shape[-1])
+        want.setdefault(ci, []).extend(
+            a for a in decs[ci].decode_params_many(slots) if len(a))
+    for ci in set(want) | set(log.audio):
+        got = [a for _, a in log.audio.get(ci, [])]
+        exp = want.get(ci, [])
+        if len(got) != len(exp) or not all(
+                np.array_equal(x, y) for x, y in zip(got, exp)):
+            fail(f"voice fleet device: carrier {ci}'s PCM ({len(got)} "
+                 f"chunks) differs from a host decoder restarted at each "
+                 f"new slot ({len(exp)} chunks)")
+    return restarts
+
+
+def voice_diff(a, b) -> int:
+    """The audio chunks (carrier, stream symbol) two VoiceLogs do not
+    share: in one only, or with other PCM."""
+    import numpy as np
+    ka = {(c, sym): x for c, v in a.audio.items() for sym, x in v}
+    kb = {(c, sym): x for c, v in b.audio.items() for sym, x in v}
+    return len(ka.keys() ^ kb.keys()) + sum(
+        not np.array_equal(ka[k], kb[k]) for k in ka.keys() & kb.keys())
+
+
+def phase_voice_fleet_device(fleet: dict) -> dict:
+    """The voice fleet with speech synthesis on the card
+    (device_voice=True).  With a decoder slot for every carrier (idle
+    carriers' noise gives voice candidates on hundreds of carriers, and
+    an evicted carrier restarts from a fresh decoder where the host keeps
+    its state): unsplit and split by a checkpoint after block 2 onto a
+    fresh Pipeline, each equal to the host-synthesis run of
+    phase_voice_fleet (audio by carrier and frame, has_voice, voice and
+    stolen frame counts), every acelp_decode launch of the unsplit run
+    equal to the plain version on its inputs.  With the default slots
+    (what a user on the card gets) and with 8 slots, where each
+    carrier's PCM equals a host decoder's restarted whenever the pool
+    gave it a slot anew, and launches after evictions are held against
+    the plain version too."""
+    from tetraear_tpu_torch.api import PipelineConfig
+    setup, host, h_stats = fleet["setup"], fleet["log"], fleet["stats"]
+    every = dict(device_voice=True,
+                 device_voice_slots=len(setup["offsets"]))
+    sp_calls = []
+    log, counts, ms, stats = voice_stream_run(setup, False, 0,
+                                              speech_calls=sp_calls, **every)
+    log2, counts2, ms2, stats2 = voice_stream_run(setup, True, 0, **every)
+    need_launched("voice fleet device", counts,
+                  FUSED_KERNELS + ("viterbi_decode", "acelp_decode"))
+    need_launched("voice fleet device split", counts2, ("acelp_decode",))
+    if not REHEARSE and counts["acelp_decode"] < len(ms):
+        fail(f"voice fleet device: acelp_decode launched "
+             f"{counts['acelp_decode']} times in {len(ms)} voice blocks")
+    for i, call in enumerate(sp_calls):
+        check_pool_launch(f"voice fleet device launch {i}", call)
+    # the split run's stats count the blocks after the restore only: its
+    # audio by frame (has_voice) is what is compared
+    if (stats.voice_frames, stats.stolen_frames) != (
+            h_stats.voice_frames, h_stats.stolen_frames):
+        fail(f"voice fleet device: {stats.voice_frames} voice / "
+             f"{stats.stolen_frames} stolen frames, host synthesis "
+             f"{h_stats.voice_frames} / {h_stats.stolen_frames}")
+    for name, lg in (("unsplit", log), ("split", log2)):
+        if not same_voice(lg, host):
+            fail(f"voice fleet device ({name}): the audio by carrier and "
+                 f"frame differs from host synthesis")
+    if check_evictions(log):
+        fail("voice fleet device: a carrier was evicted with a slot for "
+             "every carrier")
+    speakers = len({ci for ci, _ in log.pool_items})
+    n_checked = len(sp_calls)
+    r = {"blocks": len(ms), "process_block_ms": ms,
+         "process_block_ms_split": ms2,
+         "synthesis_pass_ms_per_block": log.pass_s * 1e3 / len(ms),
+         "try_voice_ms_per_block": log.synth_s * 1e3 / len(ms),
+         "voice_frames": stats.voice_frames,
+         "stolen_frames": stats.stolen_frames,
+         "acelp_launches": counts["acelp_decode"],
+         "pool_items": len(log.pool_items),
+         "pool_call_sizes": log.pool_calls,
+         "pool_call_frames": [c[1].shape[1] for c in sp_calls],
+         "speaking_carriers": speakers}
+    steady = ms[1:] or ms
+    r["process_block_ms_steady"] = sum(steady) / len(steady)
+    del sp_calls
+    # fewer slots than speaking carriers: the default, and 8 (2 in the
+    # rehearsal's 4 voice carriers); the launches held against the plain
+    # version are the first and the first after an eviction
+    default = PipelineConfig.device_voice_slots
+    for name, slots in (("default", default), ("few", 2 if REHEARSE else 8)):
+        cfg = {} if name == "default" else {"device_voice_slots": slots}
+        sp_calls = []
+        lg, cn, ms_n, st_n = voice_stream_run(
+            setup, False, 0, speech_calls=sp_calls, device_voice=True,
+            **cfg)
+        need_launched(f"voice fleet device {slots} slots", cn,
+                      ("acelp_decode",))
+        restarts = check_evictions(lg)
+        if name == "few" and not restarts:
+            fail(f"voice fleet device {slots} slots: no carrier was "
+                 f"evicted")
+        resets = [reset_before(sp_calls, i) for i in range(len(sp_calls))]
+        after = next((i for i, k in enumerate(resets) if k), None)
+        if restarts and after is None:
+            fail(f"voice fleet device {slots} slots: {restarts} restarts "
+                 f"but no launch found after a slot reset")
+        for i in sorted({0} | ({after} if after is not None else set())):
+            check_pool_launch(f"voice fleet device {slots} slots launch "
+                              f"{i} ({resets[i]} slots reset before it)",
+                              sp_calls[i])
+        n_checked += 1 + (after is not None and after != 0)
+        steady_n = ms_n[1:] or ms_n
+        r[name] = {"slots": slots, "restarts": restarts,
+                   "acelp_launches": cn["acelp_decode"],
+                   "voice_frames": st_n.voice_frames,
+                   "stolen_frames": st_n.stolen_frames,
+                   "chunks_unlike_host": voice_diff(lg, host),
+                   "chunks": sum(len(v) for v in lg.audio.values()),
+                   "launch_checked_after_reset": after,
+                   "process_block_ms": ms_n,
+                   "process_block_ms_steady": sum(steady_n) / len(steady_n)}
+        del sp_calls
+    d, f = r["default"], r["few"]
+    say(f"voice fleet device: {stats.voice_frames} voice frames "
+        f"({stats.stolen_frames} stolen), audio, has_voice and counts equal "
+        f"to host synthesis, unsplit and split after block 2; "
+        f"{counts['acelp_decode']} acelp_decode launches over {len(ms)} "
+        f"blocks (carriers a call {log.pool_calls}, frames a call "
+        f"{r['pool_call_frames']}, {speakers} carriers in all, "
+        f"{len(setup['offsets'])} slots); {n_checked} pool launches equal "
+        f"to the plain version on their rows, the rest of the bank "
+        f"unchanged; "
+        + "; ".join(
+            f"{x['slots']} slots: {x['restarts']} restarts after eviction, "
+            f"each carrier's PCM equal to a host decoder restarted with it "
+            f"({x['voice_frames']} voice frames, {x['chunks_unlike_host']} "
+            f"of {x['chunks']} chunks unlike host synthesis), process_block "
+            f"{x['process_block_ms_steady']:.2f} ms/block after the first"
+            for x in (d, f))
+        + f"; process_block {r['process_block_ms_steady']:.2f} ms/block "
+        f"after the first (host synthesis "
+        f"{fleet['result']['process_block_ms_steady']:.2f}), synthesis pass "
+        f"{r['synthesis_pass_ms_per_block']:.2f} ms/block (host "
+        f"{fleet['result']['host_synthesis_ms_per_block']:.2f}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
     return {"result": r, "launches": counts}
 
 
@@ -2242,39 +2823,51 @@ def phase_voice_rtl() -> dict:
     iq = (a[:m] * np.exp(-2j * np.pi * 250e3 * t)
           + b[:m] * np.exp(2j * np.pi * 250e3 * t)).astype(np.complex64)
     runs = {}
-    for device in (DEV, "cpu"):
+    for name, device, dv in (("host", DEV, False), ("device", DEV, True),
+                             ("cpu", "cpu", None)):
         audio = []
         pipe = Pipeline(PipelineConfig(
             sample_rate=FS_RTL, carrier_offsets_hz=(-250e3, 250e3),
-            device=device, validate=False, block_len=131_072),
-            on_audio=audio.append)
+            device=device, validate=False, block_len=131_072,
+            device_voice=dv), on_audio=audio.append)
         ck.reset_launches()
         stats = pipe.run_offline(array_source(iq, FS_RTL),
                                  blocks_per_dispatch=4)
         sync()
-        runs[device] = (audio, stats, dict(ck.launches), pipe)
+        runs[name] = (audio, stats, dict(ck.launches), pipe)
         pipe.close()
-    audio, stats, counts, pipe = runs[DEV]
+    audio, stats, counts, pipe = runs["host"]
     if pipe.runner.fused is not None or not pipe.bank.afc:
         fail("voice rtl: expected the classic chain with AFC")
+    if runs["device"][3]._voice_device is None or (
+            runs["cpu"][3]._voice_device is not None):
+        fail("voice rtl: expected device synthesis on the card run with "
+             "device_voice=True and host synthesis on the CPU by default")
     need_launched("voice rtl", counts, ("frame_scan_even", "viterbi_decode"))
+    need_launched("voice rtl device", runs["device"][2],
+                  ("frame_scan_even", "viterbi_decode", "acelp_decode"))
     cpu_audio, cpu_stats = runs["cpu"][0], runs["cpu"][1]
-    if (len(audio) != len(cpu_audio) or not all(
-            np.array_equal(x, y) for x, y in zip(audio, cpu_audio))
-            or stats.voice_frames != cpu_stats.voice_frames
-            or stats.stolen_frames != cpu_stats.stolen_frames):
-        fail(f"voice rtl: the card's PCM ({len(audio)} chunks, "
-             f"{stats.voice_frames} voice / {stats.stolen_frames} stolen "
-             f"frames) differs from the CPU run's ({len(cpu_audio)}, "
-             f"{cpu_stats.voice_frames} / {cpu_stats.stolen_frames})")
+    for name in ("host", "device"):
+        audio, stats = runs[name][0], runs[name][1]
+        if (len(audio) != len(cpu_audio) or not all(
+                np.array_equal(x, y) for x, y in zip(audio, cpu_audio))
+                or stats.voice_frames != cpu_stats.voice_frames
+                or stats.stolen_frames != cpu_stats.stolen_frames):
+            fail(f"voice rtl ({name} synthesis): the card's PCM "
+                 f"({len(audio)} chunks, {stats.voice_frames} voice / "
+                 f"{stats.stolen_frames} stolen frames) differs from the CPU "
+                 f"run's ({len(cpu_audio)}, {cpu_stats.voice_frames} / "
+                 f"{cpu_stats.stolen_frames})")
     if stats.voice_frames < n or stats.stolen_frames < 1:
         fail(f"voice rtl: {stats.voice_frames} voice frames "
              f"({stats.stolen_frames} stolen) of 2 x {n} slots")
     say(f"voice rtl: classic chain (conv, AFC), 2 carriers, "
         f"{stats.blocks} blocks: {stats.voice_frames} voice frames "
         f"({stats.stolen_frames} stolen), PCM equal to the CPU run sample "
-        f"for sample; launches { {k: v for k, v in counts.items() if v} }")
-    return counts
+        f"for sample with host and with device synthesis; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (host), "
+        f"{ {k: v for k, v in runs['device'][2].items() if v} } (device)")
+    return {"host": counts, "device": runs["device"][2]}
 
 
 PROFILE_GROUPS = (
@@ -2487,6 +3080,7 @@ def main(argv: list) -> int:
     phase_kernels_extra(seed=6)
     tea = phase_tea(seed=8, reps=5, int_rates=int_rates)
     vit = phase_viterbi(seed=9, reps=5)
+    sp = phase_speech(seed=10, reps=5)
     say(f"[{time.time() - t_start:.0f} s] kernels checked")
     phase_decode_small()
     # Pipeline takes no nfft: the rehearsal's fleet is the small geometry
@@ -2518,6 +3112,9 @@ def main(argv: list) -> int:
         f"{fleet_fs / 1e6:g} MHz done")
     t_voice = time.time()
     voice_fleet = phase_voice_fleet(c_fleet, nfft_fleet, 4, seed=21)
+    voice_dev = phase_voice_fleet_device(voice_fleet)
+    for key in ("setup", "log", "stats"):
+        del voice_fleet[key]
     counts_vrtl = phase_voice_rtl()
     say(f"[{time.time() - t_start:.0f} s] voice phases done in "
         f"{time.time() - t_voice:.0f} s")
@@ -2580,6 +3177,9 @@ def main(argv: list) -> int:
         if name == "viterbi_decode":
             kernels.append(viterbi_entry(vit, voice_fleet))
             continue
+        if name == "acelp_decode":
+            kernels.append(acelp_entry(sp, voice_dev))
+            continue
         k1, k2 = kern[name], kern_big[name]
         if main_path[name][name] == 0:
             fail(f"{name}: no launch on its path")
@@ -2622,12 +3222,17 @@ def main(argv: list) -> int:
             "stream_fused": counts_stream,
             "stream_classic_workers": counts_stream_w,
             "voice_fleet": voice_fleet["launches"],
-            "voice_rtl": counts_vrtl},
+            "voice_fleet_device": voice_dev["launches"],
+            "voice_rtl": counts_vrtl["host"],
+            "voice_rtl_device": counts_vrtl["device"]},
         "process_block": {
             "c1024": pb_fleet, "c10240": pb_bench,
             **{f"c1024_workers{w}": r for w, r in pb_fleet_w.items()},
             **{f"c10240_workers{w}": r for w, r in pb_bench_w.items()}},
         "voice_fleet": voice_fleet["result"],
+        "voice_fleet_device": voice_dev["result"],
+        "speech": {f"s{s}" if isinstance(s, int) else s: r
+                   for s, r in sp.items()},
         "native_build": native.build_info,
         "seconds": time.time() - t_start}))
     say(json.dumps({"ok": True, "device": {

@@ -235,3 +235,102 @@ def test_viterbi_decode_matches_plain_and_cpp_on_card(smoke):
     res = smoke.phase_viterbi(seed=9, reps=2)
     assert sorted(res) == list(smoke.V1_SIZES)
     assert all(r["bound_ms"] > 0 for r in res.values())
+
+
+# -- acelp_decode (V2): the wrapper's checks run anywhere, the kernel on
+# the card ---------------------------------------------------------------
+
+def _speech_args(s: int = 4, n: int = 2, device: str = "cpu") -> dict:
+    from tetraear_tpu_torch.voice import speech
+    return {"state": speech.init_state(s, device),
+            "frames": torch.zeros((s, n, 138), dtype=torch.int32,
+                                  device=device),
+            "valid": torch.ones((s, n), dtype=torch.bool, device=device)}
+
+
+@pytest.mark.parametrize("case", [
+    "frames_dtype", "frames_shape", "valid_dtype", "valid_shape",
+    "state_dtype", "state_shape", "rows_dtype", "rows_range",
+    "rows_repeated", "rows_length", "rows_on_device", "not_contiguous"])
+def test_acelp_wrapper_rejects_bad_arguments(case):
+    """decode_block checks dtype, shape, contiguity and the host-held
+    slot list before it routes, on the CPU as on the card."""
+    from tetraear_tpu_torch.voice import speech
+    a = _speech_args()
+    rows = None
+    st = a["state"]
+    if case == "frames_dtype":
+        a["frames"] = a["frames"].long()
+    elif case == "frames_shape":
+        a["frames"] = a["frames"][..., :137].contiguous()
+    elif case == "valid_dtype":
+        a["valid"] = a["valid"].to(torch.uint8)
+    elif case == "valid_shape":
+        a["valid"] = a["valid"][:, :1].contiguous()
+    elif case == "state_dtype":
+        a["state"] = st._replace(old_exc=st.old_exc.long())
+    elif case == "state_shape":
+        a["state"] = st._replace(mem_syn=st.mem_syn[:, :9].contiguous())
+    elif case == "rows_dtype":
+        rows = torch.arange(4)
+    elif case == "rows_range":
+        rows = torch.tensor([0, 1, 2, 4], dtype=torch.int32)
+    elif case == "rows_repeated":
+        rows = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
+    elif case == "rows_length":
+        rows = torch.tensor([0, 1, 2], dtype=torch.int32)
+    elif case == "rows_on_device":
+        # the slot list is held on the host whatever the device
+        rows = torch.arange(4, dtype=torch.int32, device="meta")
+    elif case == "not_contiguous":
+        a["frames"] = torch.zeros((2, 4, 138), dtype=torch.int32).transpose(
+            0, 1)
+    with pytest.raises((ValueError, TypeError)):
+        speech.decode_block(a["state"], a["frames"], a["valid"], rows)
+
+
+def test_acelp_wrapper_shapes_on_the_cpu():
+    """The plain route: (A, F, 240) int32 PCM, a new state of the input's
+    shapes and dtypes, and no launch counted."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.voice import speech
+    a = _speech_args(s=5, n=1)
+    before = ck.launches["acelp_decode"]
+    rows = torch.tensor([4, 0], dtype=torch.int32)
+    new, pcm = speech.decode_block(a["state"], a["frames"][:2],
+                                   a["valid"][:2], rows)
+    assert pcm.shape == (2, 1, 240) and pcm.dtype == torch.int32
+    for x, y in zip(new, a["state"]):
+        assert x.shape == y.shape and x.dtype == torch.int32
+    assert ck.launches["acelp_decode"] == before
+
+
+@pytest.mark.cuda
+def test_acelp_raises_on_the_card_without_a_build(smoke, monkeypatch):
+    """No fallback: with the kernel library failing to build, the wrapper
+    on CUDA tensors and a device pool on the card raise."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.voice import speech
+    from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(ck, "_lib", None)
+    monkeypatch.setattr(ck, "build", broken)
+    a = _speech_args(device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        speech.decode_block(a["state"], a["frames"], a["valid"])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        DeviceSpeechPool(slots=4, device="cuda")
+
+
+@pytest.mark.cuda
+def test_acelp_decode_matches_plain_and_cpp_on_card(smoke):
+    """acelp_decode at S = 256 and 2048 x F = 4 over two calls: PCM and
+    state bit-equal to the plain version, every slot to the C++ decoder;
+    phase_speech exits on any difference."""
+    res = smoke.phase_speech(seed=10, reps=2)
+    sizes = sorted(s for s in res if isinstance(s, int))
+    assert sizes == list(smoke.V2_SIZES)
+    assert all(res[s]["bound_ms"] > 0 for s in sizes)

@@ -89,6 +89,14 @@ PARTS = {
     "Pipeline._synth_voice_parallel": ("api.py", "api.py"),
     "Pipeline._try_voice": ("api.py", "api.py"),
     "Pipeline._try_voice_stolen": ("api.py", "api.py"),
+    "Pipeline._synth_voice_device": ("api.py", "api.py"),
+    "Pipeline._synth_voice": ("api.py", "api.py"),
+    # the device speech pool's slot management
+    "DeviceSpeechPool._slot_for": ("voice/jspeech_pool.py",
+                                   "voice/speech_pool.py"),
+    "DeviceSpeechPool.synthesize": ("voice/jspeech_pool.py",
+                                    "voice/speech_pool.py"),
+    "_pow2_at_least": ("voice/jspeech_pool.py", "voice/speech_pool.py"),
     # the static maps of the speech channel decoder
     "_expected_signs": ("voice/jviterbi.py", "voice/viterbi.py"),
     "_code_step_index": ("voice/jviterbi.py", "voice/viterbi.py"),
@@ -233,7 +241,8 @@ def test_resolve_cpu_only_when_asked():
 @pytest.mark.parametrize("entry", ["pipeline", "fused", "runner",
                                    "bank_state", "scan_kernel", "convert",
                                    "cli", "listen", "key_search",
-                                   "sharded", "voice_decode"])
+                                   "sharded", "voice_decode",
+                                   "speech_pool", "speech_state"])
 def test_entry_points_raise_without_a_card(entry, tmp_path):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
@@ -247,6 +256,8 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
     from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
     from tetraear_tpu_torch.runtime.stream import DecodeRunner
+    from tetraear_tpu_torch.voice.speech import init_state
+    from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
     from tetraear_tpu_torch.voice.viterbi import channel_decode_batch
 
     import numpy as np
@@ -272,6 +283,73 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
         "sharded": lambda: Pipeline(PipelineConfig(frame_workers=2)),
         "voice_decode": lambda: channel_decode_batch(
             np.zeros((2, 432), np.int32)),
+        "speech_pool": lambda: DeviceSpeechPool(slots=4),
+        "speech_state": lambda: init_state(4),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()
+
+
+# -- the speech kernel's tables -----------------------------------------------
+
+def test_speech_kernel_tables_and_bits2prm_walk():
+    """V2's constant table (dsp/csrc/speech.cuh c_tab, filled from
+    voice/speech.py _K_TAB): the kOff* offsets the kernel declares equal
+    the host's layout, each table read back at the kernel's offsets is
+    acelp_tables.py's, and the kernel's Bits2prm walk (parameter widths
+    from c_tab, v = (v << 1) | (bit & 1) MSB first) in numpy equals the
+    JAX package's bits2prm matrix on frames with high bits set."""
+    import numpy as np
+    from tetraear_tpu.voice import jspeech
+    from tetraear_tpu_torch.voice import acelp_tables as T
+    from tetraear_tpu_torch.voice import speech
+
+    import re
+    cuh = (PORT / "dsp/csrc/speech.cuh").read_text()
+    offs = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int kOff(\w+) = (\d+);", cuh)}
+    n = int(re.search(r"constexpr int kTabLen = (\d+);", cuh).group(1))
+    assert offs == speech.K_OFFSETS
+    tab = speech._K_TAB
+    assert tab.dtype == np.int16 and tab.size == n
+    want = {"Dico1": T.DICO1_CLSP, "Dico2": T.DICO2_CLSP,
+            "Dico3": T.DICO3_CLSP, "QuaEner": T.T_QUA_ENER,
+            "Coef1": T.COEF1, "Coef2": T.COEF2, "Log2": T.TAB_LOG2,
+            "Pow2": T.TAB_POW2, "LspoldInit": T.LSPOLD_INIT,
+            "Bitno": T.BITNO}
+    assert sorted(want) == sorted(offs)
+    for name, arr in want.items():
+        flat = np.asarray(arr).reshape(-1)
+        np.testing.assert_array_equal(
+            tab[offs[name]:offs[name] + flat.size], flat, err_msg=name)
+    # D_Lsp334's reads: DICO1[3 i + k], DICO2[3 i + k], DICO3[4 i + k]
+    for name, width in (("Dico1", 3), ("Dico2", 3), ("Dico3", 4)):
+        rows = np.asarray(want[name])
+        i = np.arange(rows.shape[0])
+        for k in range(width):
+            np.testing.assert_array_equal(
+                tab[offs[name] + width * i + k], rows[:, k])
+    # Ener_Update's reads: T_QUA_ENER[2 index], [2 index + 1]
+    q = np.asarray(T.T_QUA_ENER)
+    i = np.arange(q.shape[0])
+    np.testing.assert_array_equal(tab[offs["QuaEner"] + 2 * i], q[:, 0])
+    np.testing.assert_array_equal(tab[offs["QuaEner"] + 2 * i + 1], q[:, 1])
+
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 2, (64, 138)).astype(np.int32)
+    frames[:, 1:] |= rng.integers(0, 8, (64, 137)).astype(np.int32) << 1
+    frames[:, 0] = rng.integers(0, 3, 64)
+    got = np.zeros((64, 24), np.int64)
+    for r, bits in enumerate(frames):
+        got[r, 0] = bits[0] != 0
+        b = 1
+        for i in range(23):
+            v = 0
+            for _ in range(int(tab[offs["Bitno"] + i])):
+                v = (v << 1) | (int(bits[b]) & 1)
+                b += 1
+            got[r, 1 + i] = v
+        assert b == 138
+    want_prm = (frames[:, 1:] & 1) @ jspeech._B2P
+    np.testing.assert_array_equal(got[:, 1:], want_prm)
+    np.testing.assert_array_equal(got[:, 0], frames[:, 0] != 0)

@@ -138,18 +138,24 @@ def test_decode_runner_batch_size_invariant(single, s):
     {"carrier_afc": True}, {"sample_rate": 2.4e6},
     {"frontend": "conv"}])
 def test_ineligible_config_raises(change):
-    """What is not ported (speech synthesis on the device) raises; frame
-    workers build the worker-sharded frame layer under the same runner;
-    what the fused back half cannot serve takes the classic chain, for
-    the reason the JAX FusedRx gives."""
+    """Speech synthesis on the device builds the decoder-slot pool on the
+    pipeline's device beside the same fused runner; frame workers build
+    the worker-sharded frame layer under the same runner; what the fused
+    back half cannot serve takes the classic chain, for the reason the
+    JAX FusedRx gives."""
     cfg = dict(sample_rate=FS, carrier_offsets_hz=(12_500.0,),
                frontend="fft", carrier_afc=False, device="cpu")
     cfg.update(change)
-    if "device_voice" in change:
-        with pytest.raises(ValueError, match="ROADMAP"):
-            Pipeline(PipelineConfig(**cfg))
-        return
     pipe = Pipeline(PipelineConfig(**cfg))
+    if "device_voice" in change:
+        from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
+        try:
+            assert isinstance(pipe._voice_device, DeviceSpeechPool)
+            assert pipe._voice_device.device.type == "cpu"
+            assert pipe.runner.fused is not None
+        finally:
+            pipe.close()
+        return
     if "frame_workers" in change:
         from tetraear_tpu_torch.frame.parallel import ShardedFrameLayer
         try:

@@ -207,15 +207,37 @@ def test_port_checkpoint_restores_into_jax(captures, tmp_path):
     _same_audio(audio, want)
 
 
-def test_voice_is_on_by_default_and_synthesis_stays_on_the_host():
-    pipe = Pipeline(PipelineConfig(device="cpu"))
-    try:
-        assert pipe.voice is not None and pipe.voice.working
-        assert pipe.runner.fetch_soft
-    finally:
-        pipe.close()
-    with pytest.raises(ValueError, match="device_voice"):
-        Pipeline(PipelineConfig(device="cpu", device_voice=True))
+def test_voice_is_on_by_default_and_synthesis_stays_on_the_host(
+        monkeypatch):
+    """On the CPU the default synthesizes on the host; device_voice=True
+    builds the device pool (on the pipeline's device), and with
+    device_voice=None the TETRAEAR_DEVICE_VOICE variable decides, an
+    explicit bool winning over it (as the JAX package resolves it)."""
+    from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
+
+    def pool_of(env=None, **cfg):
+        if env is None:
+            monkeypatch.delenv("TETRAEAR_DEVICE_VOICE", raising=False)
+        else:
+            monkeypatch.setenv("TETRAEAR_DEVICE_VOICE", env)
+        pipe = Pipeline(PipelineConfig(device="cpu", **cfg))
+        try:
+            if cfg.get("voice", True):
+                assert pipe.voice is not None and pipe.voice.working
+                assert pipe.runner.fetch_soft
+            return pipe._voice_device
+        finally:
+            pipe.close()
+
+    assert pool_of() is None
+    pool = pool_of(device_voice=True, device_voice_slots=3)
+    assert isinstance(pool, DeviceSpeechPool)
+    assert pool.slots == 3 and pool.device.type == "cpu"
+    assert isinstance(pool_of("1"), DeviceSpeechPool)
+    assert pool_of("0") is None
+    assert pool_of("1", device_voice=False) is None
+    assert isinstance(pool_of("0", device_voice=True), DeviceSpeechPool)
+    assert pool_of(device_voice=True, voice=False) is None
 
 
 def test_fleet_capture_voice_carriers_decode_to_their_parameters():

@@ -21,18 +21,22 @@ the card unless ``device="cpu"`` is given.
     (crypto/batch.py);
   * voice (``voice=True``, the default): a block's voice candidates are
     channel-decoded in one launch of the ``viterbi_decode`` kernel
-    (voice/viterbi.py) and synthesized by the port's copy of the C++
-    codec (voice/codec.py, built with g++ at first use), one stateful
-    decoder a carrier, on the main thread or on ``voice_threads``.
-
-Not ported yet, and raising when asked for: speech synthesis on the
-device (``device_voice=True``).
+    (voice/viterbi.py) and synthesized either on the device, every voice
+    carrier's frames of the block in one launch of the ``acelp_decode``
+    kernel on a bank of decoder slots (``device_voice``, voice/
+    speech_pool.py), or by the port's copy of the C++ codec
+    (voice/codec.py, built with g++ at first use), one stateful decoder
+    a carrier, on the main thread or on ``voice_threads``.
+    ``device_voice=None`` (the default) reads ``TETRAEAR_DEVICE_VOICE``
+    ("1" on), and without it synthesizes on the device exactly when the
+    pipeline runs on the card.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -87,8 +91,11 @@ class PipelineConfig:
     voice_threads: int = 0              # >1: synthesize voice carriers
                                         # concurrently (one pool task per
                                         # carrier)
-    device_voice: bool = False          # speech synthesis on the device:
-                                        # not ported yet (raises)
+    device_voice: bool | None = None    # synthesize speech on the device
+                                        # (None: TETRAEAR_DEVICE_VOICE,
+                                        # else on exactly on the card)
+    device_voice_slots: int = 256       # device decoder states; carriers
+                                        # beyond it are LRU-evicted
     frame_workers: int = 0              # >0: shard the per-hit frame layer
                                         # over worker processes
                                         # (frame.parallel)
@@ -136,11 +143,6 @@ class Pipeline:
     def __init__(self, config: PipelineConfig, on_frame=None,
                  on_spectrum=None, on_audio=None, on_status=None,
                  on_raw_audio=None):
-        if config.device_voice:
-            raise ValueError(
-                "device_voice=True: speech synthesis on the device is not "
-                "ported yet (ROADMAP.md section 1, item 2); the host codec "
-                "synthesizes with device_voice=False")
         self.config = config
         self.on_frame = on_frame
         self.on_spectrum = on_spectrum
@@ -196,8 +198,6 @@ class Pipeline:
         self.voice = None
         self._voice_states: dict = {}
         self._voice_pool = None
-        # the device speech pool (DeviceSpeechPool) is the next slice;
-        # without it every voice frame synthesizes on the host
         self._voice_device = None
         if config.voice:
             # the codec is built with g++ here; a failed build raises
@@ -210,6 +210,22 @@ class Pipeline:
                 self._voice_pool = ThreadPoolExecutor(
                     max_workers=int(config.voice_threads),
                     thread_name_prefix="voice-synth")
+        device_voice = config.device_voice
+        if device_voice is None:
+            env = os.environ.get("TETRAEAR_DEVICE_VOICE")
+            if env is not None:
+                device_voice = env == "1"
+            else:
+                # as the reference turns it on on its accelerator: on the
+                # card by default, host synthesis on the CPU
+                device_voice = self.device.type == "cuda"
+        else:
+            device_voice = bool(device_voice)
+        if self.voice is not None and device_voice:
+            # on the card this builds the kernels; a failed build raises
+            from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
+            self._voice_device = DeviceSpeechPool(
+                slots=int(config.device_voice_slots), device=self.device)
         self.runner = DecodeRunner(self.bank, self.batch,
                                    device=self.device,
                                    sparse=config.sparse_hits,
@@ -343,7 +359,7 @@ class Pipeline:
                  else None),
                 out["valid"].cpu().numpy())
         self._prepare_voice_batch(frames_out)
-        self._synth_voice_parallel(frames_out)
+        self._synth_voice(frames_out)
         for f in frames_out:
             ci = f["carrier"]
             f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
@@ -406,18 +422,31 @@ class Pipeline:
         of the speech channel decoder (voice.viterbi: the viterbi_decode
         kernel on the card, its plain version on the CPU; bit-exact vs
         the C++ decoder); per-frame speech synthesis then runs from the
-        decoded parameters in _try_voice.  With fewer than two candidates
-        the host C++ path decodes them in _try_voice, as in the JAX
-        package.  A stolen frame (half-slot voice) channel-decodes on the
-        host in _try_voice_stolen: a cheap stateless call, and stealing
-        is rare."""
+        decoded parameters (_synth_voice / _try_voice).  With fewer than
+        two candidates the host C++ path decodes them: in _try_voice, or
+        here in device-synthesis mode, as in the JAX package."""
         if self.voice is None:
             return
         from tetraear_tpu_torch.voice.codec import (block_soft_bits,
-                                                    build_codec_block)
+                                                    build_codec_block,
+                                                    stolen_soft_bits)
         cands = []
         for f in frames:
-            if not self._is_voice_candidate(f) or f.get("stolen"):
+            if not self._is_voice_candidate(f):
+                continue
+            if f.get("stolen"):
+                # half-slot voice (frame stealing): the CHANNEL decode is
+                # a cheap stateless host call; in device-synthesis mode
+                # it must run here so the carrier's stolen frames join
+                # its device state stream in order.  Otherwise it decodes
+                # per-frame in _try_voice_stolen (stealing is rare).
+                if self._voice_device is not None:
+                    soft = f.get("soft_symbols")
+                    half = None if soft is None else stolen_soft_bits(soft)
+                    if half is not None:
+                        params = self.voice.channel_decode_stolen(half)
+                        if params is not None:
+                            f["_voice_params"] = params
                 continue
             soft = f.get("soft_symbols")
             if soft is None:
@@ -428,6 +457,15 @@ class Pipeline:
             f["_voice_block"] = block
             cands.append(f)
         if len(cands) < 2:
+            if self._voice_device is not None:
+                # device synthesis needs channel-decoded params for every
+                # candidate (its speech state lives on the device; the
+                # host decoder would fork the carrier's state).  One
+                # candidate: stateless host channel decode.
+                for f in cands:
+                    params = self.voice.channel_decode(f["_voice_block"])
+                    if params is not None:
+                        f["_voice_params"] = params
             return
         from tetraear_tpu_torch.voice import viterbi
         softs = np.stack([block_soft_bits(f["_voice_block"])
@@ -489,6 +527,43 @@ class Pipeline:
         for fs, fut in futs:
             for f, audio in zip(fs, fut.result()):
                 f["_voice_audio"] = audio
+
+    def _synth_voice_device(self, frames: list) -> None:
+        """Synthesize this block's voice candidates in ONE device
+        dispatch (voice.speech_pool): every candidate carries channel-
+        decoded params (_prepare_voice_batch guarantees it in device
+        mode, stolen frames included), so each carrier's frames form an
+        in-order parameter stream for its persistent device decoder
+        slot.  Audio is bit-identical to the host path (the decoder is
+        bit-exact vs the C decoder); the near-silence rejection is
+        applied per slot exactly as codec.decode_params does."""
+        by_c: dict = {}
+        for f in frames:
+            if "_voice_params" in f:
+                by_c.setdefault(f["carrier"], []).append(f)
+        if not by_c:
+            return
+        items = [(ci, np.concatenate([f["_voice_params"] for f in fs]))
+                 for ci, fs in by_c.items()]
+        pcms = self._voice_device.synthesize(items)
+        for (ci, fs), pcm in zip(by_c.items(), pcms):
+            off = 0
+            for f in fs:
+                n = len(f["_voice_params"]) * 480 // 2
+                a = pcm[off:off + n]
+                off += n
+                if a.size and float(np.max(np.abs(a))) < 1e-5:
+                    # near-silent == decode failure (voice.py:223-232)
+                    a = np.zeros(0, np.float32)
+                f["_voice_audio"] = a
+
+    def _synth_voice(self, frames: list) -> None:
+        """Block-level speech synthesis pass: device pool when enabled,
+        else the host thread pool (no-op without either)."""
+        if self._voice_device is not None:
+            self._synth_voice_device(frames)
+        else:
+            self._synth_voice_parallel(frames)
 
     def _try_voice(self, frame: dict) -> None:
         """Voice candidate path (modern.py:2088-2228): soft bits ->
@@ -645,7 +720,7 @@ class Pipeline:
             # the block-level voice passes of process_block: one batched
             # channel decode, then per-carrier synthesis
             self._prepare_voice_batch(frames)
-            self._synth_voice_parallel(frames)
+            self._synth_voice(frames)
             for f in frames:
                 ci = f["carrier"]
                 f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
@@ -705,10 +780,12 @@ class Pipeline:
         (runtime/checkpoint.py), so either package restores the other's
         file (the JAX package ignores ``parsers``; its files restore
         fresh parsers).  With voice on it also carries the lazy view's
-        previous-block soft planes (aux ``prev_soft`` / ``prev_nc``) and
+        previous-block soft planes (aux ``prev_soft`` / ``prev_nc``),
         every carrier's host speech decoder state (aux ``vhost``, extra
-        ``vhost_carriers``), so a call straddling the restart gives the
-        uninterrupted run's audio."""
+        ``vhost_carriers``) and, with device synthesis, the slot bank's
+        decoder states (aux ``vdev_{i}``, one a SpeechState leaf, extra
+        ``vdev`` / ``vdev_n``: the carrier->slot map), so a call
+        straddling the restart gives the uninterrupted run's audio."""
         from tetraear_tpu_torch.runtime import checkpoint
         layer = self._tails_layer()
         extra = {
@@ -740,6 +817,12 @@ class Pipeline:
             aux["vhost"] = np.stack(
                 [np.frombuffer(b, np.int16) for _, b in vhost])
             extra["vhost_carriers"] = [int(ci) for ci, _ in vhost]
+        if self._voice_device is not None:
+            leaves, meta = self._voice_device.checkpoint_state()
+            for i, leaf in enumerate(leaves):
+                aux[f"vdev_{i}"] = leaf
+            extra["vdev"] = meta
+            extra["vdev_n"] = len(leaves)
         checkpoint.save_state(path, self.state, extra=extra, aux=aux)
 
     def load_checkpoint(self, path) -> None:
@@ -779,6 +862,10 @@ class Pipeline:
             for i, ci in enumerate(extra.get("vhost_carriers", [])):
                 self.voice_for(int(ci)).set_state_bytes(
                     aux["vhost"][i].tobytes())
+        if "vdev" in extra and self._voice_device is not None:
+            self._voice_device.restore_state(
+                [aux[f"vdev_{i}"] for i in range(int(extra["vdev_n"]))],
+                extra["vdev"])
         layer = self._tails_layer()
         for name in ("_tail_hard", "_tail_soft", "_tail_valid"):
             if "batch" + name in aux:

@@ -23,7 +23,9 @@ chain runs ``band_synth_y`` (or an extraction kernel) and
 their wrappers in ``dsp/probes.py``, and the TEA key search
 (``tea_search``: csrc/tea.cu) has its wrappers in ``crypto/batch.py``,
 the speech channel decoder (``viterbi_decode``: csrc/viterbi.cu) its
-wrapper in ``voice/viterbi.py``; all share this module's build,
+wrapper in ``voice/viterbi.py``, the ACELP speech decoder
+(``acelp_decode``: csrc/speech.cu + speech.cuh) its wrapper in
+``voice/speech.py``; all share this module's build,
 dispatch rule and launch counts.
 
 Dispatch rule: a wrapper given CPU tensors runs the plain PyTorch
@@ -64,7 +66,7 @@ launches = {"fft2p": 0, "fft2p_pass1": 0, "band_synth": 0, "band_synth_y": 0,
             "band_synth_ph": 0, "fused_backhalf": 0, "frame_scan_even": 0,
             "band_extract_rows": 0, "band_extract": 0, "bit_place": 0,
             "ops_probe": 0, "iir_recursion": 0, "int_rate": 0,
-            "tea_search": 0, "viterbi_decode": 0}
+            "tea_search": 0, "viterbi_decode": 0, "acelp_decode": 0}
 
 
 def reset_launches() -> None:
@@ -79,7 +81,8 @@ def reset_launches() -> None:
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("common.cuh", "radix.cuh", "scan.cuh", "place.cuh", "fft2p.cu",
             "band_synth.cu", "backhalf.cu", "frame_scan.cu",
-            "band_extract.cu", "probes.cu", "tea.cu", "viterbi.cu")
+            "band_extract.cu", "probes.cu", "tea.cu", "viterbi.cu",
+            "speech.cuh", "speech.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "tetraear_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -165,11 +168,12 @@ def build() -> ctypes.CDLL:
     lib.tt_int_rate.argtypes = [ci, ci, ctypes.c_uint, vp, ci, vp]
     lib.tt_tea.argtypes = [ci, ci] + [vp] * 3 + [ci] * 4 + [vp, vp]
     lib.tt_viterbi.argtypes = [vp] * 3 + [ci] + [vp] * 4
+    lib.tt_acelp.argtypes = [vp] * 3 + [ci] * 2 + [vp] * 11
     for fn in (lib.tt_fft2p, lib.tt_fft2p_pass1, lib.tt_band_synth,
                lib.tt_fused_backhalf, lib.tt_frame_scan_even,
                lib.tt_band_extract_rows, lib.tt_band_extract,
                lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion,
-               lib.tt_int_rate, lib.tt_tea, lib.tt_viterbi):
+               lib.tt_int_rate, lib.tt_tea, lib.tt_viterbi, lib.tt_acelp):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)
     _lib = lib
