@@ -47,19 +47,26 @@ port's receive paths on the card in phases, one line per result:
 Voice: viterbi_decode against its plain version at B = 8192 and 81920
 (and the C++ decoder on 256 blocks); speech, acelp_decode against its
 plain version (PCM and every state leaf) and the C++ decoder at S = 256
-and 2048 decoder slots x 4 frames, two calls that carry the state, beside
-the host C++ codec's time on the same frames (one core and a thread a
-core); voice fleet, 16 voice carriers at C=1024 on the fused path
-through process_block with host synthesis (unsplit with sequential
-synthesis, and split by a checkpoint with two synthesis threads): every
-voice carrier's parameters equal to the encoder's, its PCM equal to a
-fresh host decoder's, both runs equal, every viterbi_decode launch held
-against the plain version on its inputs; voice fleet device, the same
-with synthesis on the card (device_voice=True), unsplit and split equal
-to host synthesis, and with 8 decoder slots each evicted carrier's PCM
-equal to a host decoder restarted with it; voice rtl, two voice carriers
-on the classic chain through run_offline, the card's PCM with host and
-with device synthesis equal to the CPU run's.
+and 2048 decoder slots x 4 frames, two calls that carry the state, with
+saturating states and frames in some slots, beside the host C++ codec's
+time on the same frames (one core and a thread a core), the bound from
+the ETSI basic operations the frames need (frame_ops, a counting build
+of the C++ codec) and a critical-path floor (the synthesis filter's
+clocks a subframe, timed alone by the synth_chain probe), then the call
+and the launch alone over 1 to 16896 slots; voice fleet, 16 voice
+carriers at C=1024 on the fused path through process_block with host
+synthesis (unsplit with sequential synthesis, and split by a checkpoint
+with two synthesis threads): every voice carrier's parameters equal to
+the encoder's, its PCM equal to a fresh host decoder's, both runs equal,
+every viterbi_decode launch held against the plain version on its
+inputs; voice fleet device, the same with synthesis on the card
+(device_voice=True), unsplit and split equal to host synthesis, every
+acelp_decode launch held against the plain version, the synthesis pass
+split into the launches' device time and the host's, the largest launch
+timed alone; and with 8 decoder slots each evicted carrier's PCM equal
+to a host decoder restarted with it; voice rtl, two voice carriers on
+the classic chain through run_offline, the card's PCM with host and with
+device synthesis equal to the CPU run's.
 
 Beside these: tea, the key search (tea_search) against its plain version
 at a large deferred decryption and a bruteforce sweep, and again at each
@@ -2032,38 +2039,6 @@ def record_viterbi_calls(calls: list):
 # bench (BENCH_MODE=voice)
 V2_SIZES = (256, 2048)
 V2_FRAMES = 4
-# Instructions of acelp_decode (one thread a slot), counted from the
-# kernel's SASS (cuobjdump -sass of the built library, sm_90a, CUDA 12):
-# each loop body's instructions times its iterations a frame.  The SASS
-# they were counted from, its instruction count and its loop bodies
-# (backward branches) in address order; check_acelp_sass fails the run
-# where the built kernel's differ, so that the count cannot go stale.
-V2_SASS_INSTRUCTIONS = 11792
-V2_SASS_LOOPS = (186, 11086) + (53, 18) * 22 + (
-    55, 19, 800, 198, 105, 199, 108, 202, 108, 202, 108, 4937, 306, 306,
-    141, 55, 187, 177, 4, 11, 4, 11, 4, 12, 4, 11, 12, 12, 177, 203, 121, 1)
-# every decoded frame (BFI or not):
-#   Bits2prm: per parameter of nb bits, nb // 4 x 53 + nb % 4 x 18   1,953
-#   the frame's straight code (D_Lsp334, pitch, copies)              3,106
-#   Int_Lpc4 + Lsp_Az: 3 x (403 + the two Get_Lsp_Pol nests 198 and
-#     199 around 105 and 108: 4 outer + 10 inner iterations each)
-#     + 2 x (the nest 202 around 108)                              12,719
-#   the PCM store (32 samples an iteration, 203)                     1,523
-#   each of 4 subframes: straight code 3,503 (the energy sums, the
-#     excitation update, the frac = 0 copy, unrolled), Syn_Filt of the
-#     impulse response 30 x 141, D_D4i60 15 x 187, Lpc_Gain's filter
-#     and the synthesis filter 30 x 177 each, sharpening and the norm /
-#     shift loops about 450                                  4 x 21,608
-V2_INSTR_FRAME = (
-    1953 + 3106
-    + 3 * (403 + 4 * (198 - 105) + 10 * 105 + 4 * (199 - 108) + 10 * 108)
-    + 2 * (4 * (202 - 108) + 10 * 108) + 1523
-    + 4 * (3503 + 30 * 141 + 15 * 187 + 2 * 30 * 177 + 450))
-# and each subframe whose pitch lag has a fraction (frac = +-1, never in
-# a BFI frame): Pred_Lt's interpolation, 60 x 306
-V2_INSTR_FRAC = 60 * 306
-# the loop bodies the two counts are made of
-V2_MODEL_LOOPS = (53, 18, 198, 105, 199, 108, 202, 203, 141, 187, 177, 306)
 V2_CORNERS = ((255, (31, 30, 0)), (196, (30, 15, 31)), (197, (0, 30, 1)),
               (0, (15, 31, 30)), (255, (30, 0, 31)))
 
@@ -2071,15 +2046,19 @@ V2_CORNERS = ((255, (31, 30, 0)), (196, (30, 15, 31)), (197, (0, 30, 1)),
 def speech_inputs(s: int, n: int, seed: int) -> tuple:
     """(s, n, 138) int32 frames and (s, n) bool valid: random bits with
     about one BFI in 8, every 16th slot a pitch-lag corner stream (t0 =
-    143 with frac = +1, the index 196 / 197 boundary, t0 = 19, and t0 =
-    144 followed by BFI frames that keep it), every 8th a first frame
-    and a run of BFI, every 32nd all BFI, and 5% holes in valid."""
+    143 with frac = +1, the index 196 / 197 boundary, t0 = 19 with frac
+    = +1, and t0 = 144 followed by BFI frames that keep it), every 16th
+    from slot 8 the largest gains (speech_state gives those slots
+    saturating states), every 8th a first frame and a run of BFI, every
+    32nd all BFI, and 5% holes in valid."""
     import numpy as np
+    import torch
     from tetraear_tpu_torch.voice import acelp_tables as T
     from tetraear_tpu_torch.voice import speech
     rng = np.random.default_rng(seed)
     fr = rng.integers(0, 2, (s, n, 138)).astype(np.int32)
     fr[:, :, 0] = rng.random((s, n)) < 0.125
+    g_max = int(np.argmax(np.asarray(T.T_QUA_ENER).reshape(-1, 2)[:, 1]))
     for k, r in enumerate(range(0, s, 16)):
         p1, deltas = V2_CORNERS[k % len(V2_CORNERS)]
         prm = np.zeros((n, 24), np.int64)
@@ -2088,6 +2067,11 @@ def speech_inputs(s: int, n: int, seed: int) -> tuple:
         prm[:, 9], prm[:, 14], prm[:, 19] = deltas
         prm[1::2, 0] = p1 == 255 and deltas[2] == 31
         fr[r] = speech.prm2bits(prm)
+    for k, r in enumerate(range(8, s, 16)):
+        prm = speech.bits2prm(torch.from_numpy(fr[r])).numpy()
+        prm[:, [8, 13, 18, 23]] = g_max
+        prm[:, 4] = (0, 123, 121)[k % 3]
+        fr[r] = speech.prm2bits(prm)
     fr[3::8, 0, 0] = 1
     fr[3::8, 1:4, 0] = 1
     fr[5::32, :, 0] = 1
@@ -2095,11 +2079,36 @@ def speech_inputs(s: int, n: int, seed: int) -> tuple:
     return fr, valid
 
 
-def cpp_speech(frames, valid, threads: int = 1) -> tuple:
-    """Each slot's valid frames through its own fresh C++ decoder
-    (tetra_speech_decode_many), on one thread or on ``threads`` threads
-    that take every threads-th slot each: ((s, n, 240) int32 PCM with
-    zeros where not valid, wall seconds)."""
+def speech_state(s: int):
+    """Fresh decoders on the card, with a saturation corner every 16th
+    slot from slot 8, in turn: the excitation history at +-32767 (the
+    interpolation's sums leave int32), clustered LSPs (an LPC with large
+    coefficients: the filters' sums leave int32), the synthesis memory at
+    +-32767; the predicted energies at their caps."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.voice import speech
+    st = [x.numpy() for x in speech.init_state(s, "cpu")]
+
+    def alt(n):
+        return np.where(np.arange(n) % 2 == 0, 32767, -32768)
+    for k, r in enumerate(range(8, s, 16)):
+        if k % 3 != 2:
+            st[0][r] = alt(speech.EXC_LEN)
+        if k % 3 != 0:
+            st[1][r] = st[2][r] = 0x2000 + 8 * np.arange(10)[::-1]
+        if k % 3 != 1:
+            st[3][r] = alt(10)
+        st[6][r], st[7][r] = 0x1B00, 0x1900
+    return speech.SpeechState(*(torch.from_numpy(x).to(DEV) for x in st))
+
+
+def cpp_speech(frames, valid, threads: int = 1, state=None) -> tuple:
+    """Each slot's valid frames through its own C++ decoder
+    (tetra_speech_decode_many), fresh or set to the slot's row of
+    ``state`` (SpeechState), on one thread or on ``threads`` threads that
+    take every threads-th slot each: ((s, n, 240) int32 PCM with zeros
+    where not valid, wall seconds)."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     import numpy as np
@@ -2109,12 +2118,19 @@ def cpp_speech(frames, valid, threads: int = 1) -> tuple:
     out = np.zeros(frames.shape[:2] + (240,), np.int32)
     inputs = [np.ascontiguousarray(frames[i][valid[i]].astype(np.int16))
               for i in range(len(frames))]
+    rows = None if state is None else np.concatenate(
+        [x.cpu().numpy().reshape(len(frames), -1) for x in state],
+        axis=1).astype(np.int16)
 
     def one(i):
         fr = inputs[i]
         pcm = np.zeros((len(fr), 240), np.int16)
         dec = lib.tetra_speech_decoder_new()
         try:
+            if rows is not None:
+                row = np.ascontiguousarray(rows[i])
+                lib.tetra_speech_decoder_set_state(
+                    dec, row.ctypes.data_as(ptr))
             if len(fr) and lib.tetra_speech_decode_many(
                     dec, fr.ctypes.data_as(ptr), len(fr),
                     pcm.ctypes.data_as(ptr)):
@@ -2158,14 +2174,23 @@ def check_speech(what: str, st, fr, valid) -> tuple:
 def record_speech_calls(calls: list):
     """Wrap voice.speech.decode_block so that each launch the pool makes
     lands in ``calls`` as (state before, frames, valid, rows, new state,
-    PCM); returns the undo.  The wrapper changes no state it is given, so
-    the tensors are kept as they are."""
+    PCM, (start, end) CUDA events around the call or None); returns the
+    undo.  The wrapper changes no state it is given, so the tensors are
+    kept as they are."""
+    import torch
     from tetraear_tpu_torch.voice import speech
     orig = speech.decode_block
 
     def recording(state, frames, valid, rows=None):
+        ev = None
+        if DEV == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
         new, pcm = orig(state, frames, valid, rows)
-        calls.append((state, frames, valid, rows, new, pcm))
+        if ev is not None:
+            ev[1].record()
+        calls.append((state, frames, valid, rows, new, pcm, ev))
         return new, pcm
 
     speech.decode_block = recording
@@ -2190,16 +2215,21 @@ def reset_before(calls: list, i: int) -> int:
     return int(differ.sum())
 
 
-def check_pool_launch(what: str, call) -> None:
+def check_pool_launch(what: str, call) -> float:
     """One acelp_decode launch of the pool against the plain version on
     the same inputs: the PCM and every state leaf of the launch's rows,
-    and every other row of the bank unchanged."""
+    and every other row of the bank unchanged.  Returns the plain
+    version's ms."""
     import torch
     from tetraear_tpu_torch.voice import speech
-    before, frames, valid, rows, new, pcm = call
+    before, frames, valid, rows, new, pcm = call[:6]
     idx = rows.to(before.old_t0.device).long()
-    sub, pcm_p = speech.decode_block_plain(
-        speech.SpeechState(*(x[idx] for x in before)), frames, valid)
+    sub0 = speech.SpeechState(*(x[idx] for x in before))
+    sync()
+    t0 = time.perf_counter()
+    sub, pcm_p = speech.decode_block_plain(sub0, frames, valid)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     rest = torch.ones(len(before.old_t0), dtype=torch.bool,
                       device=idx.device)
     rest[idx] = False
@@ -2212,6 +2242,7 @@ def check_pool_launch(what: str, call) -> None:
              f"F={frames.shape[1]}): {(pcm != pcm_p).sum().item()} PCM "
              f"samples and the state leaves {bad} differ from the plain "
              f"version on the launch's rows or changed other rows")
+    return plain_ms
 
 
 # the kernel alone at more slot counts: one slot, a warp, a warp on each
@@ -2219,84 +2250,283 @@ def check_pool_launch(what: str, call) -> None:
 V2_SWEEP = (1, 32, 132 * 32, 132 * 128)
 
 
-def acelp_sass() -> dict:
-    """acelp_kernel's SASS in the built library (cuobjdump -sass): its
-    instruction count and each loop's (backward branch's) start address
-    and body size."""
-    from tetraear_tpu_torch.dsp import cuda_kernels as ck
-    tool = Path(ck._nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(tool), "-sass", ck.build_info["path"]],
-                         capture_output=True, text=True, timeout=300).stdout
-    start = out.index("Function : ", out.index("acelp_kernel") - 200)
-    end = out.find("Function : ", start + 10)
-    body = out[start:end if end > 0 else len(out)]
-    ins = [(int(a, 16), t) for a, t in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-    loops = []
-    for addr, text in ins:
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
-        if m and int(m.group(1), 16) <= addr:
-            loops.append((int(m.group(1), 16), (addr - int(m.group(1), 16))
-                          // 16 + 1))
-    return {"instructions": len(ins), "loops": sorted(loops)}
+# ---------------------------------------------------------------------------
+# the ETSI basic operations the speech decoder needs for given frames
+# ---------------------------------------------------------------------------
+#
+# A counting build of the port's C++ codec (voice/csrc) adds one for each
+# basic operator the decoder calls; an operator called inside another
+# counts with it.  The sources stay as they are: build_opcount copies them
+# into build/opcount/, puts a counter at the head of every basic operator
+# of the copy's etsi_dsp.h (ETSI_OP) and compiles the copy with g++ into
+# libtetracodec_count.so.  frame_ops runs it over a bank's frames, each
+# slot from its own state, and returns every frame's count: the work the
+# frames need whatever implements it, from which acelp_decode's bound is
+# taken (tests/test_torch_speechops.py holds the counts per frame).
+
+VOICE_CSRC = ROOT / "tetraear_tpu_torch" / "voice" / "csrc"
+OPCOUNT_LIB = ROOT / "build" / "opcount" / "libtetracodec_count.so"
+_OPCOUNT_SOURCES = ("channel.cpp", "etsi_acelp_dec.cpp", "etsi_acelp_enc.cpp",
+                    "etsi_speech_api.cpp")
+# the basic operators of etsi_dsp.h (the helpers built on them, Load_sh
+# and the rest, count through the operators they call)
+ETSI_OPERATORS = ("add", "sub", "abs_s", "negate", "extract_h",
+                  "extract_l", "L_mult", "L_mult0", "mult", "mult_r",
+                  "L_add", "L_sub", "L_mac", "L_msu", "L_mac0", "L_msu0",
+                  "L_negate", "L_deposit_h", "L_deposit_l", "L_abs", "shr",
+                  "shl", "L_shr", "L_shl", "L_shr_r", "round_w", "norm_s",
+                  "norm_l", "div_s")
+_OPCOUNT_COUNTER = """
+/* the counting build: etsi::ops counts the basic operators called
+ * from outside any other one */
+extern thread_local unsigned long long ops;
+extern thread_local int op_depth;
+struct OpScope {
+  OpScope() { if (op_depth++ == 0) ops++; }
+  ~OpScope() { op_depth--; }
+};
+#define ETSI_OP OpScope etsi_op_scope_
+"""
+_OPCOUNT_EXPORTS = """#include "etsi_dsp.h"
+namespace etsi {
+thread_local unsigned long long ops = 0;
+thread_local int op_depth = 0;
+}
+extern "C" unsigned long long tetra_speech_ops(void) { return etsi::ops; }
+extern "C" void tetra_speech_ops_reset(void) { etsi::ops = 0; }
+"""
 
 
-def check_acelp_sass(sass: dict) -> None:
-    """The built kernel's SASS is the one V2_INSTR_FRAME and
-    V2_INSTR_FRAC were counted from: the same instruction count and loop
-    bodies, every body of the count among them."""
-    bodies = tuple(n for _, n in sass["loops"])
-    missing = sorted(set(V2_MODEL_LOOPS) - set(bodies))
-    if (sass["instructions"] != V2_SASS_INSTRUCTIONS
-            or bodies != V2_SASS_LOOPS or missing):
-        fail(f"acelp_kernel's SASS changed ({sass['instructions']} "
-             f"instructions, loop bodies {bodies}; counted from "
-             f"{V2_SASS_INSTRUCTIONS} and {V2_SASS_LOOPS}, bodies "
-             f"{missing} of the count gone): recount V2_INSTR_FRAME and "
-             f"V2_INSTR_FRAC")
+def counting_header(text: str) -> str:
+    """etsi_dsp.h with the counter: ETSI_OP at the head of each operator
+    of ETSI_OPERATORS (each defined once), the counter's declarations at the
+    head of the namespace."""
+    for name in ETSI_OPERATORS:
+        pat = re.compile(r"(inline \w+ " + name + r"\([^)]*\) \{)")
+        found = [m for m in pat.finditer(text)]
+        if len(found) != 1:
+            raise RuntimeError(f"etsi_dsp.h: {len(found)} definitions of "
+                               f"{name}, one expected")
+        text = pat.sub(r"\1 ETSI_OP;", text)
+    head = "namespace etsi {\n"
+    if text.count(head) != 1:
+        raise RuntimeError("etsi_dsp.h: no single 'namespace etsi {'")
+    return text.replace(head, head + _OPCOUNT_COUNTER)
 
 
-def v2_instructions(fr, valid) -> tuple:
-    """The instructions acelp_decode runs on these frames (V2_INSTR_FRAME
-    a valid frame, V2_INSTR_FRAC more a subframe whose lag has a
-    fraction, from each frame's pitch indices as jspeech.decode_frame
-    reads them); returns (instructions, those subframes' share)."""
+def build_opcount() -> Path:
+    """The counting library, built unless newer than every source of
+    voice/csrc (under a file lock, as the port's native.build does)."""
+    import fcntl
+    import shutil
+    import tempfile
+    newest = max(p.stat().st_mtime for p in VOICE_CSRC.iterdir()
+                 if p.is_file())
+    if OPCOUNT_LIB.exists() and OPCOUNT_LIB.stat().st_mtime >= newest:
+        return OPCOUNT_LIB
+    OPCOUNT_LIB.parent.mkdir(parents=True, exist_ok=True)
+    with open(OPCOUNT_LIB.parent / ".lock_count", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if OPCOUNT_LIB.exists() and OPCOUNT_LIB.stat().st_mtime >= newest:
+            return OPCOUNT_LIB
+        tmp = Path(tempfile.mkdtemp(prefix="count",
+                                    dir=OPCOUNT_LIB.parent))
+        try:
+            for p in VOICE_CSRC.iterdir():
+                if p.is_file():
+                    shutil.copy(p, tmp / p.name)
+            (tmp / "etsi_dsp.h").write_text(
+                counting_header((VOICE_CSRC / "etsi_dsp.h").read_text()))
+            (tmp / "etsi_opcount.cpp").write_text(_OPCOUNT_EXPORTS)
+            out = tmp / OPCOUNT_LIB.name
+            r = subprocess.run(
+                ["g++", "-O2", "-fPIC", "-std=c++17", "-shared", "-o",
+                 str(out), *(str(tmp / s) for s in _OPCOUNT_SOURCES),
+                 str(tmp / "etsi_opcount.cpp")],
+                capture_output=True, text=True, timeout=600)
+            if r.returncode:
+                raise RuntimeError(f"building {OPCOUNT_LIB.name} failed:\n"
+                                   f"{r.stderr}")
+            os.replace(out, OPCOUNT_LIB)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return OPCOUNT_LIB
+
+
+_OPCOUNT_LIB = None
+
+
+def _opcount_lib():
+    import ctypes
+    global _OPCOUNT_LIB
+    if _OPCOUNT_LIB is None:
+        lib = ctypes.CDLL(str(build_opcount()))
+        i16p = ctypes.POINTER(ctypes.c_int16)
+        lib.tetra_speech_decoder_new.restype = ctypes.c_void_p
+        lib.tetra_speech_decoder_free.argtypes = [ctypes.c_void_p]
+        lib.tetra_speech_decoder_set_state.argtypes = [ctypes.c_void_p,
+                                                       i16p]
+        lib.tetra_speech_decoder_state_size.restype = ctypes.c_int
+        lib.tetra_speech_decode.argtypes = [ctypes.c_void_p, i16p, i16p]
+        lib.tetra_speech_decode.restype = ctypes.c_int
+        lib.tetra_speech_ops.restype = ctypes.c_ulonglong
+        _OPCOUNT_LIB = lib
+    return _OPCOUNT_LIB
+
+
+def frame_ops(state, frames, valid):
+    """(S, F) int64: the basic operations the decoder runs on each valid
+    frame (0 where not valid), each slot's frames in order from its row
+    of ``state`` (the eight SpeechState leaves, (S, ...) arrays or
+    tensors).  frames: (S, F, 138) [BFI + 137 serial bits]; valid:
+    (S, F) bool.  Post_Process (x2) counts with its frame."""
+    import ctypes
+    import numpy as np
+    lib = _opcount_lib()
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    rows = np.concatenate([np.asarray(x).reshape(len(x), -1)
+                           for x in state], axis=1).astype(np.int16)
+    if rows.shape[1] * 2 != lib.tetra_speech_decoder_state_size():
+        raise ValueError(f"state: {rows.shape[1]} words a slot, the C++ "
+                         f"decoder's state is "
+                         f"{lib.tetra_speech_decoder_state_size() // 2}")
+    frames = np.ascontiguousarray(np.asarray(frames), dtype=np.int16)
+    valid = np.asarray(valid, bool)
+    out = np.zeros(valid.shape, np.int64)
+    pcm = np.zeros(240, np.int16)
+    dec = lib.tetra_speech_decoder_new()
+    try:
+        for s in range(len(frames)):
+            row = np.ascontiguousarray(rows[s])
+            lib.tetra_speech_decoder_set_state(dec, row.ctypes.data_as(i16p))
+            for f in np.nonzero(valid[s])[0]:
+                lib.tetra_speech_ops_reset()
+                if lib.tetra_speech_decode(dec,
+                                           frames[s, f].ctypes.data_as(i16p),
+                                           pcm.ctypes.data_as(i16p)):
+                    raise RuntimeError(f"the counting decoder failed on "
+                                       f"slot {s} frame {f}")
+                out[s, f] = lib.tetra_speech_ops()
+    finally:
+        lib.tetra_speech_decoder_free(dec)
+    return out
+
+
+def v2_work(state, fr, valid) -> dict:
+    """acelp_decode's bound and floor for one call: the ETSI basic
+    operations the call's frames need (frame_ops, the counting build of
+    the C++ decoder, each slot from its own state), each charged as one
+    integer instruction at ISSUE_PER_CLK_SM a clock an SM, beside the
+    bytes the call must move: each valid frame and every valid flag
+    read, the PCM written, and for each slot with a valid frame its
+    state read and written once, of old_exc the EXC_OFF history words
+    read and EXC_OFF + L_FRAME written; and the critical-path floor, the
+    busiest slot's valid subframes at synth_floor()'s SM clocks a
+    subframe, measured in this run."""
+    import numpy as np
+    from tetraear_tpu_torch.voice import speech
+    fr, valid = np.asarray(fr), np.asarray(valid)
+    ops = frame_ops([x.cpu().numpy() for x in state], fr, valid)
+    n_frames = int(valid.sum())
+    busiest = int(valid.sum(axis=1).max()) if valid.size else 0
+    s, n = valid.shape
+    live = int(valid.any(axis=1).sum())
+    words = sum(x[0].numel() for x in state[1:])
+    io = 4 * (n_frames * fr.shape[2] + s * n * speech.L_FRAME
+              + live * (2 * words + 2 * speech.EXC_OFF + speech.L_FRAME))
+    io += valid.size
+    r = bound(io, 0.0, issue=float(ops.sum()))
+    floor = synth_floor()
+    r.update(etsi_ops=int(ops.sum()),
+             etsi_ops_per_frame=float(ops.sum()) / max(n_frames, 1),
+             floor_ms=busiest * 4 * floor["cycles_per_subframe"]
+             / SM_CLOCK_HZ * 1e3, floor_frames=busiest)
+    return r
+
+
+_SYNTH_FLOOR = {}
+
+
+def synth_floor(reps: int = 5) -> dict:
+    """The floor's yardstick, measured once a run: probes.synth_chain,
+    acelp_decode's synthesis filter alone on one lane, over 64 subframes
+    (16 frames) of LPC of a decoder's size and inputs whose reordered
+    pass holds (the common case), held against its plain version; the
+    least SM clocks a subframe of ``reps`` launches.  0 in the
+    rehearsal (no clock on the plain route)."""
+    if _SYNTH_FLOOR:
+        return _SYNTH_FLOOR
     import numpy as np
     import torch
+    from tetraear_tpu_torch.dsp import probes
+    rng = np.random.default_rng(17)
+    n = probes.SYNTH_CHAIN_MAX
+    a = rng.integers(-3000, 3001, (n, 11)).astype(np.int32)
+    a[:, 0] = 4096
+    x = rng.integers(-1000, 1001, (n, 60)).astype(np.int32)
+    mem = rng.integers(-2000, 2001, 10).astype(np.int32)
+    ta, tx, tm = (torch.from_numpy(v).to(DEV) for v in (a, x, mem))
+    want = probes.synth_chain_plain(*(torch.from_numpy(v)
+                                      for v in (a, x, mem)))
+    cyc = []
+    for _ in range(reps):
+        y, m, c = probes.synth_chain(ta, tx, tm)
+        if not (torch.equal(y.cpu(), want[0]) and
+                torch.equal(m.cpu(), want[1])):
+            fail("synth_chain: differs from the plain Syn_Filt")
+        cyc.append(int(c.item()))
+    _SYNTH_FLOOR.update(subframes=n, cycles=min(cyc),
+                        cycles_per_subframe=min(cyc) / n,
+                        cycles_per_sample=min(cyc) / (n * 60))
+    say(f"probe synth_chain: equal to the plain Syn_Filt over {n} "
+        f"subframes; {min(cyc)} SM clocks on one lane (least of {reps}), "
+        f"{_SYNTH_FLOOR['cycles_per_subframe']:.0f} a subframe, "
+        f"{_SYNTH_FLOOR['cycles_per_sample']:.1f} a sample")
+    return _SYNTH_FLOOR
+
+
+def acelp_kernel_ms(state, frames, valid, rows, reps: int) -> float:
+    """acelp_decode's own time: tt_acelp launched as it is (no state
+    copy, no checks) on a copy of the state, which the launches carry on,
+    CUDA events over ``reps`` launches after one; the host clock over
+    the wrapper's plain route in the rehearsal."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
     from tetraear_tpu_torch.voice import speech
-    prm = speech.bits2prm(torch.from_numpy(np.asarray(fr))).numpy()
-    good = np.asarray(valid) & (prm[..., 0] == 0)   # a BFI frame: frac 0
-    idx = prm[..., [4, 9, 14, 19]]
-    t0 = ((idx[..., 0] + 2) * 0x2AAB >> 15) + 19
-    frac = np.empty_like(idx)
-    frac[..., 0] = np.where(idx[..., 0] <= 196, idx[..., 0] + 58 - 3 * t0, 0)
-    tmp = ((idx[..., 1:] + 2) * 0x2AAB >> 15) - 1
-    frac[..., 1:] = idx[..., 1:] - (3 * tmp + 2)
-    n_frac = int(((frac != 0) & good[..., None]).sum())
-    n_frames = int(np.asarray(valid).sum())
-    return (n_frames * V2_INSTR_FRAME + n_frac * V2_INSTR_FRAC,
-            n_frac / max(4 * n_frames, 1))
+    st = speech.SpeechState(*(x.clone() for x in state))
+    if DEV == "cpu":
+        return event_ms(lambda: speech.decode_block(st, frames, valid, rows),
+                        1)
+    lib = ck.build()
+    dev = frames.device
+    rows = (torch.arange(len(st.old_t0), dtype=torch.int32, device=dev)
+            if rows is None else rows.to(dev))
+    pcm = torch.empty(frames.shape[:2] + (speech.L_FRAME,),
+                      dtype=torch.int32, device=dev)
+    args = (ck._ptr(frames), ck._ptr(valid), ck._ptr(rows), len(rows),
+            frames.shape[1], *(ck._ptr(x) for x in st), ck._ptr(pcm),
+            speech._K_TAB.ctypes.data, ck._stream(dev))
+
+    def launch():
+        if lib.tt_acelp(*args):
+            fail("acelp_decode: the launch failed")
+    return event_ms(launch, reps)
 
 
 def phase_speech(seed: int, reps: int) -> dict:
     """acelp_decode at S = 256 and 2048 slots x F = 4 frames: two calls
-    that carry the state, each held against the plain version (PCM and
-    every state leaf) and both against the C++ decoder on every slot;
-    kernel, plain, host C++ (one core, and a thread a core) and bound
-    times of one call (the bound from the SASS's instruction counts and
-    the call's own frames), and the latency floor (one slot).  Returns
-    {S: result}."""
+    that carry the state (saturation corners in speech_state's slots),
+    each held against the plain version (PCM and every state leaf) and
+    both against the C++ decoder on every slot; kernel, plain, host C++
+    (one core, and a thread a core) and bound times of one call (the
+    bound from the ETSI operations of the call's own frames), the
+    critical-path floor (synth_floor's clocks), and one slot's call and
+    launch.  Then the call and the launch alone over V2_SWEEP slots.
+    Returns {S: result, "sweep_ms": ..., "sweep_kernel_ms": ...}."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.voice import speech
     res = {}
-    if not REHEARSE:
-        res["sass"] = acelp_sass()
-        check_acelp_sass(res["sass"])
-        say(f"acelp_kernel SASS: {res['sass']['instructions']} "
-            f"instructions and loop bodies as counted; {V2_INSTR_FRAME} "
-            f"instructions a valid frame, {V2_INSTR_FRAC} more a subframe "
-            f"with a fractional lag")
     threads = os.cpu_count() or 1
     for s in V2_SIZES:
         s = 16 * s // 256 if REHEARSE else s
@@ -2304,7 +2534,7 @@ def phase_speech(seed: int, reps: int) -> dict:
         fr, valid = speech_inputs(s, 2 * n, seed + s)
         t_fr = torch.from_numpy(fr).to(DEV)
         t_v = torch.from_numpy(valid).to(DEV)
-        st0 = speech.init_state(s, DEV)
+        st0 = speech_state(s)
         calls = [(t_fr[:, :n].contiguous(), t_v[:, :n].contiguous()),
                  (t_fr[:, n:].contiguous(), t_v[:, n:].contiguous())]
         st, pcms = st0, []
@@ -2312,45 +2542,49 @@ def phase_speech(seed: int, reps: int) -> dict:
             st, pcm = check_speech(f"S={s} call {k + 1}", st, f_k, v_k)
             pcms.append(pcm)
         got = torch.cat(pcms, dim=1).cpu().numpy()
-        want, _ = cpp_speech(fr, valid, threads)
+        want, _ = cpp_speech(fr, valid, threads, st0)
         if not np.array_equal(got, want):
             bad = np.nonzero((got != want).any(axis=(1, 2)))[0]
             fail(f"acelp_decode S={s}: slots {bad[:8].tolist()} (of "
                  f"{len(bad)}) differ from the C++ decoder over two calls")
         f1, v1 = calls[0]
-        _, one_core = cpp_speech(fr[:, :n], valid[:, :n], 1)
-        _, multi = cpp_speech(fr[:, :n], valid[:, :n], threads)
-        frames_1 = int(valid[:, :n].sum())
-        instr, frac_share = v2_instructions(fr[:, :n], valid[:, :n])
+        _, one_core = cpp_speech(fr[:, :n], valid[:, :n], 1, st0)
+        _, multi = cpp_speech(fr[:, :n], valid[:, :n], threads, st0)
         st1 = speech.init_state(1, DEV)
         v_one = torch.ones_like(v1[:1])
         r = {"max_abs_err": 0.0, "tol": 0.0, "slots": s, "frames": n,
-             "decoded_frames": frames_1,
+             "decoded_frames": int(valid[:, :n].sum()),
              "bfi_frames": int((fr[:, :n, 0] != 0)[valid[:, :n]].sum()),
              "ms": event_ms(lambda: speech.decode_block(st0, f1, v1), reps),
+             "kernel_ms": acelp_kernel_ms(st0, f1, v1, None, reps),
              "plain_ms": event_ms(
                  lambda: speech.decode_block_plain(st0, f1, v1), 1),
              "host_ms": one_core * 1e3, "host_threads": threads,
              "host_threads_ms": multi * 1e3,
              "latency_ms": event_ms(lambda: speech.decode_block(
                  st1, f1[:1].contiguous(), v_one), reps),
-             "library_ms": None, "frac_subframe_share": frac_share,
-             **bound(nbytes(f1, v1) + 2 * nbytes(*st0) + s * n * 240 * 4,
-                     0.0, issue=instr)}
+             "latency_kernel_ms": acelp_kernel_ms(
+                 st1, f1[:1].contiguous(), v_one, None, reps),
+             "library_ms": None,
+             **v2_work(st0, fr[:, :n], valid[:, :n])}
         res[s] = r
         say(f"kernel acelp_decode S={s} F={n}: PCM and state bit-equal to "
             f"the plain version over two calls, every slot equal to the C++ "
-            f"decoder ({r['decoded_frames']} frames a call, "
-            f"{r['bfi_frames']} BFI); {r['ms']:.4f} ms, plain "
+            f"decoder, saturation corners included ({r['decoded_frames']} "
+            f"frames a call, {r['bfi_frames']} BFI); {r['ms']:.4f} ms a call "
+            f"({r['kernel_ms']:.4f} ms the launch alone), plain "
             f"{r['plain_ms']:.1f} ms, host C++ {r['host_ms']:.2f} ms on one "
             f"core and {r['host_threads_ms']:.2f} ms on {threads} threads, "
             f"library call none, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({r['ops']:.3e} integer instructions at "
-            f"{ISSUE_PER_CLK_SM:.0f} a clock an SM, {frac_share:.3f} of the "
-            f"subframes with a fractional lag), latency floor "
-            f"{r['latency_ms']:.4f} ms (one slot, {n} frames)")
+            f"{r['bound_by']} ({r['etsi_ops']} ETSI basic operations, "
+            f"{r['etsi_ops_per_frame']:.0f} a frame, as integer instructions "
+            f"at {ISSUE_PER_CLK_SM:.0f} a clock an SM), critical-path floor "
+            f"{r['floor_ms']:.4f} ms (the busiest slot's subframes at the "
+            f"synth_chain probe's clocks), one slot {r['latency_ms']:.4f} ms "
+            f"a call, {r['latency_kernel_ms']:.4f} ms the launch ({n} "
+            f"frames)")
         del t_fr, t_v, st0, st, calls
-    sweep = {}
+    sweep, sweep_kernel = {}, {}
     for s in V2_SWEEP:
         s = min(s, 64) if REHEARSE else s
         fr, valid = speech_inputs(s, V2_FRAMES, seed + 1)
@@ -2359,36 +2593,78 @@ def phase_speech(seed: int, reps: int) -> dict:
         st0 = speech.init_state(s, DEV)
         sweep[s] = event_ms(lambda: speech.decode_block(st0, t_fr, t_v),
                             reps)
-    say(f"kernel acelp_decode alone, F={V2_FRAMES} every frame valid: "
-        + ", ".join(f"S={s} {ms:.4f} ms" for s, ms in sweep.items()))
+        sweep_kernel[s] = acelp_kernel_ms(st0, t_fr, t_v, None, reps)
+    say(f"kernel acelp_decode, F={V2_FRAMES} every frame valid, a call "
+        f"(the launch alone): "
+        + ", ".join(f"S={s} {ms:.4f} ({sweep_kernel[s]:.4f}) ms"
+                    for s, ms in sweep.items()))
     res["sweep_ms"] = sweep
+    res["sweep_kernel_ms"] = sweep_kernel
     sync()
     return res
 
 
+def live_launch(call, plain_ms: float, reps: int) -> dict:
+    """The live launch shape: one recorded pool launch of the voice fleet
+    (its rows of the bank, F frames a row) replayed on the kernel alone,
+    beside the plain version's time on it (check_pool_launch), the host
+    C++ codec's on the same frames from the same states (one core), the
+    bound of its ETSI operations and the floor."""
+    import torch
+    from tetraear_tpu_torch.voice import speech
+    before, frames, valid, rows = call[:4]
+    idx = rows.to(before.old_t0.device).long()
+    sub = speech.SpeechState(*(x[idx] for x in before))
+    fr, v = frames.cpu().numpy(), valid.cpu().numpy()
+    _, host = cpp_speech(fr, v, 1, sub)
+    r = {"rows": int(len(idx)), "bank": int(len(before.old_t0)),
+         "frames": int(frames.shape[1]), "decoded_frames": int(v.sum()),
+         "ms": event_ms(lambda: speech.decode_block(before, frames, valid,
+                                                    rows), reps),
+         "kernel_ms": acelp_kernel_ms(before, frames, valid, rows, reps),
+         "plain_ms": plain_ms, "host_ms": host * 1e3,
+         **v2_work(sub, fr, v)}
+    return r
+
+
 def acelp_entry(sp: dict, voice_dev: dict) -> dict:
     """The kernels line's acelp_decode entry: S = 256 as its numbers,
-    S = 2048 and the voice fleet's launches beside them."""
+    S = 2048 and the live launch beside them."""
     src, replaces = KERNELS["acelp_decode"]
     (s1, r1), (s2, r2) = sorted((s, r) for s, r in sp.items()
                                 if isinstance(s, int))
+    live = voice_dev["result"]["live_launch"]
     return {"name": "acelp_decode", "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": voice_dev["launches"]["acelp_decode"],
             "max_abs_err": 0.0, "ms": r1["ms"], "plain_ms": r1["plain_ms"],
             "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
             "library_ms": None, "bound_bytes": r1["bytes"],
-            "bound_ops": r1["ops"],
+            "bound_ops": r1["ops"], "etsi_ops": r1["etsi_ops"],
+            "floor_ms": r1["floor_ms"],
             "shape": f"S={s1} slots x F={r1['frames']} frames",
             "host_ms": r1["host_ms"],
             "host_threads_ms": r1["host_threads_ms"],
             "latency_ms": r1["latency_ms"],
+            "latency_kernel_ms": r1["latency_kernel_ms"],
+            "floor_cycles_per_subframe":
+                synth_floor()["cycles_per_subframe"],
             f"ms_s{s2}": r2["ms"], f"plain_ms_s{s2}": r2["plain_ms"],
             f"bound_ms_s{s2}": r2["bound_ms"],
             f"bound_by_s{s2}": r2["bound_by"],
+            f"floor_ms_s{s2}": r2["floor_ms"],
             f"host_ms_s{s2}": r2["host_ms"],
             f"host_threads_ms_s{s2}": r2["host_threads_ms"],
             f"latency_ms_s{s2}": r2["latency_ms"],
+            f"latency_kernel_ms_s{s2}": r2["latency_kernel_ms"],
+            "kernel_ms": r1["kernel_ms"],
+            f"kernel_ms_s{s2}": r2["kernel_ms"],
+            "live": {k: live[k] for k in (
+                "rows", "bank", "frames", "ms", "kernel_ms", "plain_ms",
+                "host_ms",
+                "bound_ms", "bound_by", "floor_ms", "etsi_ops")},
+            "sweep_ms": sp["sweep_ms"],
+            "sweep_kernel_ms": sp["sweep_kernel_ms"],
             "path_calls": voice_dev["result"]["pool_call_sizes"]}
 
 
@@ -2710,8 +2986,16 @@ def phase_voice_fleet_device(fleet: dict) -> dict:
     if not REHEARSE and counts["acelp_decode"] < len(ms):
         fail(f"voice fleet device: acelp_decode launched "
              f"{counts['acelp_decode']} times in {len(ms)} voice blocks")
-    for i, call in enumerate(sp_calls):
-        check_pool_launch(f"voice fleet device launch {i}", call)
+    plain = [check_pool_launch(f"voice fleet device launch {i}", call)
+             for i, call in enumerate(sp_calls)]
+    # the synthesis pass split: the acelp_decode calls' device time
+    # (CUDA events around each, the state copy and table upload
+    # included) and the rest, host work (packing, copies, the PCM fetch)
+    sync()
+    kernel_ms = sum(c[6][0].elapsed_time(c[6][1]) for c in sp_calls
+                    if c[6] is not None)
+    big = max(range(len(sp_calls)), key=lambda i: len(sp_calls[i][3]))
+    live = live_launch(sp_calls[big], plain[big], reps=5)
     # the split run's stats count the blocks after the restore only: its
     # audio by frame (has_voice) is what is compared
     if (stats.voice_frames, stats.stolen_frames) != (
@@ -2731,6 +3015,10 @@ def phase_voice_fleet_device(fleet: dict) -> dict:
     r = {"blocks": len(ms), "process_block_ms": ms,
          "process_block_ms_split": ms2,
          "synthesis_pass_ms_per_block": log.pass_s * 1e3 / len(ms),
+         "synthesis_kernel_ms_per_block": kernel_ms / len(ms),
+         "synthesis_host_ms_per_block":
+             (log.pass_s * 1e3 - kernel_ms) / len(ms),
+         "live_launch": live,
          "try_voice_ms_per_block": log.synth_s * 1e3 / len(ms),
          "voice_frames": stats.voice_frames,
          "stolen_frames": stats.stolen_frames,
@@ -2799,8 +3087,17 @@ def phase_voice_fleet_device(fleet: dict) -> dict:
         + f"; process_block {r['process_block_ms_steady']:.2f} ms/block "
         f"after the first (host synthesis "
         f"{fleet['result']['process_block_ms_steady']:.2f}), synthesis pass "
-        f"{r['synthesis_pass_ms_per_block']:.2f} ms/block (host "
-        f"{fleet['result']['host_synthesis_ms_per_block']:.2f}); launches "
+        f"{r['synthesis_pass_ms_per_block']:.2f} ms/block, of it "
+        f"acelp_decode calls {r['synthesis_kernel_ms_per_block']:.2f} and "
+        f"host "
+        f"{r['synthesis_host_ms_per_block']:.2f} (host synthesis "
+        f"{fleet['result']['host_synthesis_ms_per_block']:.2f}); the largest "
+        f"launch (A={live['rows']} of {live['bank']} slots, F={live['frames']}"
+        f") {live['ms']:.4f} ms a call ({live['kernel_ms']:.4f} ms the "
+        f"launch alone), plain {live['plain_ms']:.1f} ms, host "
+        f"C++ {live['host_ms']:.2f} ms on one core, bound "
+        f"{live['bound_ms']:.4f} ms by {live['bound_by']}, floor "
+        f"{live['floor_ms']:.4f} ms (synth_chain's clocks); launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     return {"result": r, "launches": counts}
 

@@ -226,3 +226,58 @@ def test_int_rate_rejects_other_kinds_and_sizes():
         probes.int_rate("mul", 1, torch.empty(256, dtype=torch.int32))
     with pytest.raises(ValueError):
         probes.int_rate("logic", 1, torch.empty(100, dtype=torch.int32))
+
+
+def _syn_filt_python(a, x, mem):
+    """Syn_Filt in Python integers: each product subtracted and the sum
+    saturated in turn, the rounding, the saturating shift by 4, the high
+    word."""
+    def sat(v):
+        return max(-2 ** 31, min(2 ** 31 - 1, v))
+    y, m = [], list(mem)
+    for xi in x:
+        L = xi * 4096
+        for j in range(1, 11):
+            L = sat(L - a[j] * m[10 - j])
+        L = sat(L + 2048)
+        L = sat(L * 16)
+        out = L >> 16
+        y.append(out)
+        m = m[1:] + [out]
+    return y, m
+
+
+@pytest.mark.parametrize("scale", [1, 8])
+def test_synth_chain_plain_equals_python_integers(scale):
+    """acelp_decode's synthesis chain probe, plain route: subframes in
+    order with the memory carried, against Syn_Filt in Python integers
+    (scale 8 saturates)."""
+    rng = np.random.default_rng(5 + scale)
+    n = 3
+    a = np.clip(rng.integers(-3000 * scale, 3000 * scale + 1, (n, 11)),
+                -32768, 32767).astype(np.int32)
+    a[:, 0] = 4096
+    x = np.clip(rng.integers(-1000 * scale, 1000 * scale + 1, (n, 60)),
+                -32768, 32767).astype(np.int32)
+    mem = rng.integers(-2000, 2001, 10).astype(np.int32)
+    y, m, cycles = probes.synth_chain(torch.from_numpy(a),
+                                      torch.from_numpy(x),
+                                      torch.from_numpy(mem))
+    want_m = [int(v) for v in mem]
+    for s in range(n):
+        want_y, want_m = _syn_filt_python([int(v) for v in a[s]],
+                                          [int(v) for v in x[s]], want_m)
+        assert y[s].tolist() == want_y
+    assert m.tolist() == want_m and cycles.tolist() == [0]
+
+
+def test_synth_chain_rejects_other_sizes():
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        probes.synth_chain(z(65, 11, dtype=torch.int32),
+                           z(65, 60, dtype=torch.int32),
+                           z(10, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        probes.synth_chain(z(2, 11, dtype=torch.int32),
+                           z(2, 59, dtype=torch.int32),
+                           z(10, dtype=torch.int32))

@@ -19,7 +19,8 @@ Each wrapper replaces one Pallas kernel of
 The first, third and sixth carry the fused receive path; the classic
 chain runs ``band_synth_y`` (or an extraction kernel) and
 ``frame_scan_even``.  The other measurement instruments (``bit_place``,
-``ops_probe``, ``iir_recursion``, ``int_rate``: csrc/probes.cu) have
+``ops_probe``, ``iir_recursion``, ``int_rate``: csrc/probes.cu;
+``synth_chain``: csrc/speech.cu) have
 their wrappers in ``dsp/probes.py``, and the TEA key search
 (``tea_search``: csrc/tea.cu) has its wrappers in ``crypto/batch.py``,
 the speech channel decoder (``viterbi_decode``: csrc/viterbi.cu) its
@@ -66,7 +67,8 @@ launches = {"fft2p": 0, "fft2p_pass1": 0, "band_synth": 0, "band_synth_y": 0,
             "band_synth_ph": 0, "fused_backhalf": 0, "frame_scan_even": 0,
             "band_extract_rows": 0, "band_extract": 0, "bit_place": 0,
             "ops_probe": 0, "iir_recursion": 0, "int_rate": 0,
-            "tea_search": 0, "viterbi_decode": 0, "acelp_decode": 0}
+            "tea_search": 0, "viterbi_decode": 0, "acelp_decode": 0,
+            "synth_chain": 0}
 
 
 def reset_launches() -> None:
@@ -169,11 +171,13 @@ def build() -> ctypes.CDLL:
     lib.tt_tea.argtypes = [ci, ci] + [vp] * 3 + [ci] * 4 + [vp, vp]
     lib.tt_viterbi.argtypes = [vp] * 3 + [ci] + [vp] * 4
     lib.tt_acelp.argtypes = [vp] * 3 + [ci] * 2 + [vp] * 11
+    lib.tt_synth_chain.argtypes = [vp, vp, ci] + [vp] * 4
     for fn in (lib.tt_fft2p, lib.tt_fft2p_pass1, lib.tt_band_synth,
                lib.tt_fused_backhalf, lib.tt_frame_scan_even,
                lib.tt_band_extract_rows, lib.tt_band_extract,
                lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion,
-               lib.tt_int_rate, lib.tt_tea, lib.tt_viterbi, lib.tt_acelp):
+               lib.tt_int_rate, lib.tt_tea, lib.tt_viterbi, lib.tt_acelp,
+               lib.tt_synth_chain):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)
     _lib = lib

@@ -16,6 +16,10 @@ kernel (csrc/probes.cu) with a plain PyTorch version:
                      instruction rates,
                      which price the frame scan's bound (no TPU
                      counterpart; chip_smoke.py's yardstick)
+  ``synth_chain``    acelp_decode's synthesis filter alone, subframe
+                     after subframe on one lane (csrc/speech.cu): its
+                     SM clocks a subframe, the critical-path floor of
+                     that kernel (no TPU counterpart)
 
 No decode path calls them: ``chip_smoke.py`` drives each, holds it
 against its plain version and times both.  Build, dispatch rule (CPU
@@ -318,3 +322,57 @@ def int_rate_plain(kind: str, iters: int, n: int) -> torch.Tensor:
         acc = acc ^ v
     acc = torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc)
     return acc.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the synthesis chain of acelp_decode (the yardstick of its floor)
+# ---------------------------------------------------------------------------
+
+SYNTH_CHAIN_MAX = 64        # subframes a launch: 16 frames, acelp's pass
+
+
+def synth_chain(a: torch.Tensor, x: torch.Tensor, mem: torch.Tensor) -> tuple:
+    """Syn_Filt over n subframes in order, the filter memory carried:
+    a (n, 11) int32 LPC (Q12) of each subframe, x (n, 60) int32 inputs,
+    mem (10,) int32.  Returns (y (n, 60) int32, the new mem (10,) int32,
+    cycles (1,) int64: the SM clocks the kernel's one lane took over the
+    n subframes, 0 on the plain route).
+
+    The chain that no lane of acelp_decode can share: its warp 1 runs
+    speech.cuh's syn_filt exactly so, from shared memory, a subframe a
+    step.  Bound: latency, by construction (one lane).  Design: one warp
+    stages the inputs in shared memory, lane 0 runs the subframes
+    between two reads of clock64."""
+    n = a.shape[0] if a.dim() == 2 else -1
+    _check(a, "a", (n, 11), torch.int32)
+    _check(x, "x", (n, 60), torch.int32)
+    _check(mem, "mem", (10,), torch.int32)
+    if not 1 <= n <= SYNTH_CHAIN_MAX:
+        raise ValueError(f"synth_chain: {n} subframes (1..{SYNTH_CHAIN_MAX})")
+    if _route(a, x, mem) == "cpu":
+        return synth_chain_plain(a, x, mem)
+    dev = a.device
+    lib = ck.build()
+    y = torch.empty((n, 60), dtype=torch.int32, device=dev)
+    m = mem.clone()
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    _launch("synth_chain", dev, lib.tt_synth_chain, _ptr(a), _ptr(x), n,
+            _ptr(m), _ptr(y), _ptr(cycles))
+    return y, m, cycles
+
+
+def synth_chain_plain(a, x, mem) -> tuple:
+    """Plain version of synth_chain: voice/speech.py's Syn_Filt, a
+    subframe at a time (cycles 0)."""
+    from tetraear_tpu_torch.voice import speech
+    a, x = a.cpu().long(), x.cpu().long()
+    m = [mem[q:q + 1].cpu().long() for q in range(10)]
+    ys = []
+    for s in range(a.shape[0]):
+        y, m = speech._syn_filt([a[s, j:j + 1] for j in range(11)],
+                                [x[s, i:i + 1] for i in range(60)], m)
+        ys.append(torch.cat(y))
+    dev = mem.device
+    return (torch.stack(ys).to(torch.int32).to(dev),
+            torch.cat(m).to(torch.int32).to(dev),
+            torch.zeros(1, dtype=torch.int64, device=dev))

@@ -9,10 +9,11 @@ reference binary), concealment state included.
     major int32 (Word16 values), so checkpoint leaves line up;
   * ``decode_block(state, frames, valid, rows=None)``: the kernel
     wrapper.  On CUDA tensors it launches the hand-written
-    ``acelp_decode`` kernel (dsp/csrc/speech.cu + speech.cuh, one thread
-    a decoder slot, built with the other kernels by dsp.cuda_kernels,
-    one count in ``cuda_kernels.launches["acelp_decode"]`` a launch); on
-    CPU tensors it runs ``decode_block_plain``;
+    ``acelp_decode`` kernel (dsp/csrc/speech.cu + speech.cuh, a CTA of
+    two warps a decoder slot, built with the other kernels by
+    dsp.cuda_kernels, one count in ``cuda_kernels.launches
+    ["acelp_decode"]`` a launch); on CPU tensors it runs
+    ``decode_block_plain``;
   * ``decode_block_plain``: the plain version, a straight port of
     jspeech.py's decoder onto voice/fixed.py's basicops, with the
     sample recursions (long-term predictor, synthesis filters, pitch
@@ -601,10 +602,14 @@ def decode_block(state: SpeechState, frames: torch.Tensor,
     The given state is not changed.
 
     Replaces the reference's ``decode_block`` (jspeech.py:564, an XLA
-    program of lax.scans).  Bound: integer instructions, tens of
-    thousands of basicops a frame, every one a short dependent chain.
-    Design: dsp/csrc/speech.cu, one thread a slot running the C++
-    decoder's code on its state in local memory."""
+    program of lax.scans).  Bound: latency, a slot's frames being one
+    serial chain (~15,000 ETSI basic operations a frame, of which the
+    synthesis filter's 240 samples and the excitation's pitch-gain
+    chain are serial by nature).  Design: dsp/csrc/speech.cu, a CTA of
+    two warps a slot with its state in shared memory: the
+    parameter-only work of every subframe across lanes, then the
+    excitation chain on one warp beside the synthesis filter, one
+    subframe behind, on the other."""
     slots = state.old_t0.shape[0] if isinstance(state, SpeechState) else 0
     _check_state(state, slots)
     if rows is None:
