@@ -23,7 +23,13 @@ port's receive paths on the card in phases, one line per result:
      paths use: fft2p at nfft 2^14 and 2^18 with and without splice and
      wrap rows, fused_backhalf at C=8 / 2.304 MHz with 0, half and all
      symbols valid, band_synth's three forms at n_band 512, 2048 and
-     16384, frame_scan_even at the edge lengths of its planes;
+     16384, frame_scan_even at the edge lengths of its planes, the two
+     extraction kernels at edge shapes and on three real grids' starts
+     (the fleet-aligned rows at C=1024; pairs of n_band 64 on the decode
+     element bank, C=2, and on the 61.44 MHz grid, C=2457) with the
+     launch alone timed; each extraction wrapper
+     is called once under torch.cuda.set_sync_debug_mode("error"), so a
+     host synchronisation on its launch path fails the run;
   4. decode small: Pipeline.run_offline on a golden 8-carrier capture at
      2.304 MHz on the card and on the CPU (fused path);
   5. decode fleet: Pipeline.run_offline at C=1024 / 36.864 MHz on the
@@ -94,6 +100,11 @@ Two other modes print no result line and exit non-zero:
     python3 chip_smoke.py --rehearse   # the phases' control flow on the
                                        # CPU at a tiny size (plain
                                        # versions; nothing is built)
+    python3 chip_smoke.py --extract-parent DIR
+                                       # the extraction kernels in turns
+                                       # with the band_extract.cu (and
+                                       # common.cuh) in DIR: launch alone
+                                       # and call, one JSON line a case
 """
 
 import json
@@ -139,6 +150,9 @@ FS_RTL = 2.4e6
 FS_FLEET = 36.864e6
 FS_ALIGNED = 40.96e6
 FS_BENCH = 294.912e6
+# the widest unaligned grid with n_band no multiple of 128 (64)
+FS_ELEMENT = 61.44e6
+NFFT_ELEMENT = 32768
 RTL_OFFSETS = (12_500.0, -287_500.0)
 FIXTURE = ROOT / "tests" / "fixtures" / "offair_2carrier.cs16"
 
@@ -177,9 +191,11 @@ def grid(c: int) -> list:
     return [(i - c // 2) * 25_000 + 12_500.0 for i in range(c)]
 
 
-def event_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean device time of fn() over reps launches (CUDA events; the
-    host clock in the rehearsal)."""
+    host clock in the rehearsal).  ``queued``: the card first sleeps ~10
+    ms while the host queues the launches, so that launches shorter than
+    their host work are timed back to back on the card."""
     import torch
     fn()
     if DEV == "cpu":
@@ -189,6 +205,8 @@ def event_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -238,6 +256,169 @@ def bound(in_out_bytes: int, ops: float, logic: float = 0.0,
             "bytes": int(in_out_bytes), "ops": float(total),
             "bytes_ms": t_bytes, "ops_ms": t_ops,
             "fp32_rate_ms": max(t_bytes, total / FP32_OPS_PER_S * 1e3)}
+
+
+def no_sync(what: str, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"), so that a
+    call that synchronises the host with the card fails the run."""
+    import torch
+    if DEV == "cpu":
+        return fn()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"{what}: the call synchronises ({e})")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def extract_random(c: int, nfft_: int, nb: int, planes, rng) -> list:
+    """(name, what, source, plan, starts on the card, gather) of both
+    extraction forms on random in-range starts at one geometry, the first
+    and last slices and odd starts included: rows over ``planes`` (2,
+    (nfft + n_band) / 128, 128), pairs over the first nfft + n_band pairs
+    of its rows; each set of starts made into a plan once on the host."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    dev = planes.device
+    p = nb // 128
+    r_rows = planes.shape[1]
+    rs = rng.integers(0, r_rows - p + 1, c).astype(np.int32)
+    rs[0], rs[-1] = 0, r_rows - p
+    plan = ck.ExtractPlan("rows", rs, p, r_rows)
+    rs = torch.from_numpy(rs).to(dev)
+    pl_idx = torch.arange(2, device=dev)[None, :, None]
+    row_idx = (rs.long()[:, None, None]
+               + torch.arange(p, device=dev)[None, None, :])
+    out = [("band_extract_rows", f"band_extract_rows C={c}", planes, plan,
+            rs, lambda: planes[pl_idx, row_idx])]
+    flat = planes.reshape(2, -1)[:, :nfft_ + nb]
+    x_ext = torch.stack([flat[0], flat[1]], dim=1).contiguous()
+    st = rng.integers(0, nfft_ + 1, c).astype(np.int32)
+    st[0], st[1], st[-2], st[-1] = 0, 1, nfft_ - 1, nfft_
+    plan = ck.ExtractPlan("pairs", st, nb, nfft_ + nb)
+    st = torch.from_numpy(st).to(dev)
+    idx = st.long()[:, None] + torch.arange(nb, device=dev)[None, :]
+    out.append(("band_extract", f"band_extract C={c}", x_ext, plan, st,
+                lambda: x_ext[idx]))
+    return out
+
+
+# the C library of an earlier band_extract.cu (--extract-parent), timed in
+# turns with this checkout's extraction kernels by extract_result
+PARENT_EXTRACT = None
+
+
+def build_parent_extract(parent: Path):
+    """The earlier ``band_extract.cu`` in ``parent`` (beside the
+    ``common.cuh`` it includes), built alone with nvcc.  Its C entries are
+    the thread-copy kernels' tt_band_extract_rows(planes, plane_len,
+    row_start, out, P, C, stream) and tt_band_extract(x, start, out,
+    n_band, C, stream), the starts int32 on the card."""
+    import ctypes
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    so = ck.BUILD_DIR.parent / "parent_extract" / "libband_extract.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run(
+        [ck._nvcc(), *ck._flags("band_extract.cu"), "-shared", "-o", str(so),
+         str(parent / "band_extract.cu")], capture_output=True, text=True)
+    if r.returncode:
+        fail(f"nvcc of {parent / 'band_extract.cu'}:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tt_band_extract_rows.argtypes = [vp, ctypes.c_longlong, vp, vp, ci,
+                                         ci, vp]
+    lib.tt_band_extract.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.tt_band_extract_rows.restype = lib.tt_band_extract.restype = ci
+    return lib
+
+
+def parent_turns(what: str, src, plan, starts, want, launch,
+                 reps: int) -> dict:
+    """The earlier kernel (PARENT_EXTRACT) on the same inputs: equal to the
+    plain version; its launch alone queued in turns with ``launch``
+    (earlier, this, this, earlier), and its call as its wrapper made it
+    (the starts' torch.aminmax read on the host, then the launch)."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    out = torch.empty_like(want)
+    stream = ck._stream(src.device)
+    if plan.form == "rows":
+        fn = PARENT_EXTRACT.tt_band_extract_rows
+        args = (ck._ptr(src), plan.n_rows * 128, ck._ptr(starts),
+                ck._ptr(out), plan.span, len(plan.starts), stream)
+    else:
+        fn = PARENT_EXTRACT.tt_band_extract
+        args = (ck._ptr(src), ck._ptr(starts), ck._ptr(out), plan.span,
+                len(plan.starts), stream)
+
+    def parent_launch():
+        if fn(*args):
+            fail(f"{what}: the earlier kernel's launch failed")
+
+    def parent_call():
+        lo, hi = (int(v) for v in torch.aminmax(starts))
+        if lo < 0 or hi + plan.span > plan.n_rows:
+            fail(f"{what}: starts out of range")
+        parent_launch()
+
+    parent_launch()
+    if not torch.equal(out, want):
+        fail(f"{what}: the earlier kernel differs from the plain version")
+    t = [event_ms(f, reps, queued=True)
+         for f in (parent_launch, launch, launch, parent_launch)]
+    return {"parent_launch_ms": [t[0], t[3]], "turn_launch_ms": t[1:3],
+            "parent_call_ms": event_ms(parent_call, reps)}
+
+
+def extract_result(what: str, src, plan, starts, gather, reps: int,
+                   xreps: int) -> dict:
+    """One extraction kernel (by the plan's form) on ``src``: bit-equal to
+    its plain version and to the single-call gather, one call without a
+    synchronisation; times of the call, the launch alone (the C entry
+    through ctypes, plan uploaded and output allocated before, launches
+    queued behind a sleep of the card), the plain version and the gather;
+    the bound from the distinct source bytes read once plus the output
+    and the starts; with --extract-parent, the earlier kernel's times
+    (parent_turns)."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    rows = plan.form == "rows"
+    call = ck.band_extract_rows if rows else ck.band_extract
+    plain = ck.band_extract_rows_plain if rows else ck.band_extract_plain
+    got = call(src, plan, plan.span)
+    want = plain(src, starts, plan.span)
+    if not torch.equal(got, want):
+        fail(f"{what}: differs from the plain version")
+    if not torch.equal(gather(), want):
+        fail(f"{what}: the single-call gather differs")
+    no_sync(what, lambda: call(src, plan, plan.span))
+    turns = {}
+    if DEV == "cpu":
+        launch_ms = event_ms(lambda: call(src, plan, plan.span), 1)
+    else:
+        fn, args = ck.extract_entry(plan, src, got)
+        stream = ck._stream(src.device)
+
+        def launch():
+            if fn(*args, stream):
+                fail(f"{what}: the launch failed")
+        launch_ms = event_ms(launch, xreps, queued=True)
+        if PARENT_EXTRACT is not None:
+            turns = parent_turns(what, src, plan, starts, want, launch, xreps)
+        if not torch.equal(got, want):
+            fail(f"{what}: the launches alone left another output")
+    return {
+        "max_abs_err": 0.0, "tol": 0.0,
+        "ms": event_ms(lambda: call(src, plan, plan.span), xreps),
+        "launch_ms": launch_ms,
+        "plain_ms": event_ms(lambda: plain(src, starts, plan.span), reps),
+        "library_ms": event_ms(gather, xreps),
+        "source_bytes": plan.source_bytes,
+        **bound(plan.source_bytes + plan.out_bytes + nbytes(starts), 0.0),
+        **turns}
 
 
 def scan_rows(c: int, n: int, rng):
@@ -445,51 +626,14 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
                 *(c * corr_k.shape[1] * v for v in scan_ops(16)))}
     del rows, corr_k, corr_p, err_k, err_p
 
-    # band extraction: random in-range starts, wrap rows included; at
-    # C=1024 a launch is short beside the spread of a 10-launch mean, so
-    # kernel and gather are timed over 100 launches there
+    # band extraction: random in-range starts; at C=1024 a launch is
+    # short beside the spread of a 10-launch mean, so the call, the launch
+    # and the gather are timed over 100 launches there
     xreps = 100 if c <= 1024 else reps
-    p = nb // 128
-    r_rows = planes.shape[1]
-    rs = rng.integers(0, r_rows - p + 1, c)
-    rs[0], rs[-1] = 0, r_rows - p
-    rs = torch.from_numpy(rs.astype(np.int32)).to(dev)
-    got = ck.band_extract_rows(planes, rs, p)
-    want = ck.band_extract_rows_plain(planes, rs, p)
-    if not torch.equal(got, want):
-        fail(f"band_extract_rows C={c}: differs from the gather")
-    pl_idx = torch.arange(2, device=dev)[None, :, None]
-    row_idx = (rs.long()[:, None, None]
-               + torch.arange(p, device=dev)[None, None, :])
-    if not torch.equal(planes[pl_idx, row_idx], want):
-        fail(f"band_extract_rows C={c}: the single-call gather differs")
-    res["band_extract_rows"] = {
-        "max_abs_err": 0.0, "tol": 0.0,
-        "ms": event_ms(lambda: ck.band_extract_rows(planes, rs, p), xreps),
-        "plain_ms": event_ms(
-            lambda: ck.band_extract_rows_plain(planes, rs, p), reps),
-        "library_ms": event_ms(lambda: planes[pl_idx, row_idx], xreps),
-        **bound(2 * nbytes(got) + nbytes(rs), 0.0)}
-    del got, want, row_idx
-
-    flat = planes.reshape(2, -1)[:, :nfft_ + nb]
-    x_ext = torch.stack([flat[0], flat[1]], dim=1).contiguous()
-    st = rng.integers(0, nfft_ + 1, c)
-    st[0], st[1], st[-2], st[-1] = 0, 1, nfft_ - 1, nfft_
-    st = torch.from_numpy(st.astype(np.int32)).to(dev)
-    got = ck.band_extract(x_ext, st, nb)
-    want = ck.band_extract_plain(x_ext, st, nb)
-    if not torch.equal(got, want):
-        fail(f"band_extract C={c}: differs from the gather")
-    idx = st.long()[:, None] + torch.arange(nb, device=dev)[None, :]
-    res["band_extract"] = {
-        "max_abs_err": 0.0, "tol": 0.0,
-        "ms": event_ms(lambda: ck.band_extract(x_ext, st, nb), xreps),
-        "plain_ms": event_ms(
-            lambda: ck.band_extract_plain(x_ext, st, nb), reps),
-        "library_ms": event_ms(lambda: x_ext[idx], xreps),
-        **bound(2 * nbytes(got) + nbytes(st), 0.0)}
-    del got, want, idx, x_ext
+    for name, what, src, plan, starts, gather in extract_random(
+            c, nfft_, nb, planes, rng):
+        res[name] = extract_result(what, src, plan, starts, gather, reps,
+                                   xreps)
 
     # the placement probe: random decisions of k_max - 2 .. k_max valid
     # symbols on the carried tail of the state above
@@ -545,6 +689,11 @@ def phase_kernels(fs: float, c: int, seed: int, reps: int,
             f"({r['bytes']} bytes {r['bytes_ms']:.4f} ms, {r['ops']:.3e} "
             f"ops {r['ops_ms']:.4f} ms; every operation at the float32 "
             f"rate: {r['fp32_rate_ms']:.4f} ms)")
+    for name in ("band_extract_rows", "band_extract"):
+        r = res[name]
+        say(f"kernel {name} C={c}: the launch alone {r['launch_ms']:.4f} "
+            f"ms (the call {r['ms']:.4f}); {r['source_bytes']} distinct "
+            f"source bytes")
     r = res["fft2p"]
     say(f"kernel fft2p C={c}, unspliced window (o2 = 0): kernel "
         f"{r['unspliced_ms']:.4f} ms, plain {r['unspliced_plain_ms']:.4f} "
@@ -876,6 +1025,112 @@ def check_band_synth_sizes(rng) -> None:
                                          for k, v in worst.items()))
 
 
+# (form, span, source rows, starts or a count of random starts): sorted,
+# unsorted, duplicate, disjoint and overlapping starts, wrap rows, odd
+# starts, an odd n_band, C = 1 and C = 2 (the element path's size)
+EXTRACT_SHAPES = (
+    ("rows", 8, 40, [0, 3, 17, 32]), ("rows", 8, 40, [32, 31, 0, 30, 30]),
+    ("rows", 8, 40, [32]), ("rows", 8, 40, [0, 32]),
+    ("rows", 64, 2000, 300), ("rows", 128, 4224, 50),
+    ("pairs", 64, 1088, [0, 2, 512, 1024]),
+    ("pairs", 64, 1088, [1, 3, 511, 1023]), ("pairs", 64, 1088, [5]),
+    ("pairs", 64, 1088, [0, 1]), ("pairs", 64, 1088, [7, 7, 7, 6]),
+    ("pairs", 63, 1087, [0, 1, 512, 1023]), ("pairs", 2, 1088, [1, 3, 1086]),
+    ("pairs", 8192, 2 ** 18 + 8192, 200), ("pairs", 64, 2 ** 15 + 64, 2457))
+
+
+def check_extract_shapes(rng) -> None:
+    """Both extraction kernels bit-equal to their plain versions at
+    EXTRACT_SHAPES."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    dev = torch.device(DEV)
+    for form, span, n_rows, starts in EXTRACT_SHAPES:
+        if isinstance(starts, int):
+            starts = rng.integers(0, n_rows - span + 1, starts)
+        starts = np.asarray(starts, np.int32)
+        shape = (2, n_rows, 128) if form == "rows" else (n_rows, 2)
+        src = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+        plan = ck.ExtractPlan(form, starts, span, n_rows)
+        rows = form == "rows"
+        got = (ck.band_extract_rows if rows else ck.band_extract)(
+            src, plan, span)
+        want = (ck.band_extract_rows_plain if rows else
+                ck.band_extract_plain)(
+            src, torch.from_numpy(starts).to(dev), span)
+        if not torch.equal(got, want):
+            fail(f"band_extract {form}: span {span} of {n_rows} rows, "
+                 f"C={len(starts)}: differs from the plain version")
+    say(f"kernels band_extract_rows, band_extract: {len(EXTRACT_SHAPES)} "
+        f"shapes (C = 1 to 2457, spans 2 to 8192, odd starts and n_band, "
+        f"duplicates, wrap rows) equal to the plain versions")
+
+
+def phase_extract_grids(seed: int) -> dict:
+    """The extraction kernels on real channel grids' starts: the rows form
+    on the fleet-aligned bank's row starts (C=1024, 40.96 MHz); the pairs
+    form, which runs where n_band is no multiple of 128, on the decode
+    element bank's (C=2, 2.4 MHz, nfft 1024, n_band 64: its launch a
+    block) and on the largest C such a bank admits (the 25 kHz grid
+    filling 61.44 MHz, nfft 32768, n_band 64: C = 2457).  Equality, call,
+    launch alone, gather and bound as in phase_kernels; a list of results
+    a kernel."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp.channelizer import FFTChannelizer
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEV)
+    res = {"band_extract_rows": [], "band_extract": []}
+    for shape, ch in (
+            ("C=1024 fs=40.96MHz aligned", FFTChannelizer(
+                FS_ALIGNED, grid(1024), kernel_synth=False,
+                kernel_extract=True)),
+            ("C=2 fs=2.4MHz nfft=1024 n_band=64 (decode element)",
+             CarrierBankDemod(fs=FS_RTL, freqs_hz=list(RTL_OFFSETS),
+                              frontend="fft", afc=True,
+                              nfft=1024).channelizer),
+            (f"C={int(FS_ELEMENT // 25_000)} fs={FS_ELEMENT / 1e6:g}MHz "
+             f"nfft={NFFT_ELEMENT} n_band=64", FFTChannelizer(
+                 FS_ELEMENT, grid(int(FS_ELEMENT // 25_000)),
+                 nfft=NFFT_ELEMENT))):
+        plan = ch.extract_plan
+        if plan.form == "pairs" and plan.span % 128 == 0:
+            fail(f"band_extract grid {shape}: n_band {plan.span}")
+        starts = torch.from_numpy(plan.starts).to(dev)
+        if plan.form == "rows":
+            name = "band_extract_rows"
+            src = torch.from_numpy(rng.standard_normal(
+                (2, plan.n_rows, 128)).astype(np.float32)).to(dev)
+            idx = (starts.long()[:, None, None]
+                   + torch.arange(plan.span, device=dev)[None, None, :])
+            pl_idx = torch.arange(2, device=dev)[None, :, None]
+
+            def gather(src=src, pl_idx=pl_idx, idx=idx):
+                return src[pl_idx, idx]
+        else:
+            name = "band_extract"
+            src = torch.from_numpy(rng.standard_normal(
+                (plan.n_rows, 2)).astype(np.float32)).to(dev)
+            idx = (starts.long()[:, None]
+                   + torch.arange(plan.span, device=dev)[None, :])
+
+            def gather(src=src, idx=idx):
+                return src[idx]
+        r = extract_result(f"{name} grid {shape}", src, plan, starts, gather,
+                           10, 100)
+        r["shape"] = shape
+        res[name].append(r)
+        say(f"kernel {name} on the {shape} grid: equal to the plain "
+            f"version; call {r['ms']:.4f} ms, launch {r['launch_ms']:.4f}, "
+            f"gather {r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.5f} ({r['source_bytes']} distinct "
+            f"source bytes)")
+    return res
+
+
 def check_frame_scan_edges(rng) -> None:
     """frame_scan_even at the edge lengths of its planes (22: one sync
     position, no CRC position; 229 to 233 around the first CRC position;
@@ -1015,6 +1270,7 @@ def phase_kernels_extra(seed: int) -> None:
         f"{ns // 2} and {ns} valid symbols equal to the plain version")
     check_band_synth_sizes(rng)
     check_frame_scan_edges(rng)
+    check_extract_shapes(rng)
 
 
 # Integer operations of the scan (csrc/scan.cuh) a position, as (logic,
@@ -3295,6 +3551,35 @@ def main_profile(card: str, out_dir: Path) -> int:
     return 4
 
 
+def main_extract_parent(parent: Path) -> int:
+    """The extraction kernels in turns with an earlier band_extract.cu:
+    random starts at the C=1024 and C=10240 geometries, then the real
+    grids; one JSON line a case."""
+    global PARENT_EXTRACT
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp.channelizer import choose_decim, choose_nfft
+    PARENT_EXTRACT = build_parent_extract(parent)
+    rng = np.random.default_rng(1)
+    for fs, c in ((FS_FLEET, 1024), (FS_BENCH, 10240)):
+        nfft_ = choose_nfft(fs)
+        nb = nfft_ // choose_decim(fs)
+        planes = torch.from_numpy(rng.standard_normal(
+            (2, (nfft_ + nb) // 128, 128)).astype(np.float32)).to(DEV)
+        for _, what, src, plan, starts, gather in extract_random(
+                c, nfft_, nb, planes, rng):
+            r = extract_result(what, src, plan, starts, gather, 10,
+                               100 if c <= 1024 else 10)
+            say(json.dumps({"case": what, **r}))
+        del planes, src
+        torch.cuda.empty_cache()
+    for name, rs in phase_extract_grids(seed=7).items():
+        for r in rs:
+            say(json.dumps({"case": f"{name} grid", **r}))
+    say("extract-parent mode: no result line")
+    return 1
+
+
 def main(argv: list) -> int:
     global DEV, REHEARSE, SM_CLOCK_HZ
     if not (ROOT / "tetraear_tpu_torch" / "dsp" / "csrc").is_dir():
@@ -3361,6 +3646,9 @@ def main(argv: list) -> int:
         rest = argv[argv.index("--profile") + 1:]
         return main_profile(card, ROOT / (rest[0] if rest
                                           else "profile_out"))
+    if "--extract-parent" in argv:
+        return main_extract_parent(
+            Path(argv[argv.index("--extract-parent") + 1]).resolve())
 
     # sizes: the real ones, or a tiny stand-in for each in the rehearsal
     # (C=8, nfft overrides; the fleet stand-in stays fused-eligible)
@@ -3375,6 +3663,7 @@ def main(argv: list) -> int:
     kern_big = phase_kernels(FS_BENCH, c_bench, seed=2, reps=3,
                              nfft=nfft_bench)
     phase_kernels_extra(seed=6)
+    grids = phase_extract_grids(seed=7)
     tea = phase_tea(seed=8, reps=5, int_rates=int_rates)
     vit = phase_viterbi(seed=9, reps=5)
     sp = phase_speech(seed=10, reps=5)
@@ -3496,6 +3785,12 @@ def main(argv: list) -> int:
             "bound_by_c10240": k2["bound_by"],
             "bound_bytes_c10240": k2["bytes"],
             "library_ms_c10240": k2["library_ms"],
+            **({"launch_ms": k1["launch_ms"],
+                "launch_ms_c10240": k2["launch_ms"],
+                "source_bytes": k1["source_bytes"],
+                "source_bytes_c10240": k2["source_bytes"],
+                "real_grid": grids[name]}
+               if name in grids else {}),
             **({"unspliced_ms": k1["unspliced_ms"],
                 "unspliced_plain_ms": k1["unspliced_plain_ms"],
                 "unspliced_ms_c10240": k2["unspliced_ms"],

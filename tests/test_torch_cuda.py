@@ -70,6 +70,20 @@ def test_band_synth_forms_at_every_band_length(smoke):
 
 
 @pytest.mark.cuda
+def test_extraction_shapes_and_grids_on_card(smoke):
+    """Both extraction kernels bit-equal to their plain versions at the
+    edge shapes (C = 1 and 2, odd starts and n_band, duplicates, wrap
+    rows) and on the fleet-aligned, decode element and 61.44 MHz element
+    grids, a call without a host synchronisation."""
+    import numpy as np
+    smoke.check_extract_shapes(np.random.default_rng(44))
+    res = smoke.phase_extract_grids(seed=7)
+    assert [len(res[k]) for k in ("band_extract_rows", "band_extract")] \
+        == [1, 2]
+    assert all(r["bound_by"] == "bytes" for rs in res.values() for r in rs)
+
+
+@pytest.mark.cuda
 def test_frame_scan_edge_lengths_on_card(smoke):
     """n = 22, 23, 229 to 233, 1426, 5266, 5267 on 37 rows (zeros, ones,
     a frame at the first and the last position, random): bit-identical."""

@@ -23,6 +23,9 @@ not a Pallas kernel), then one of
   * ``cuda_kernels.band_extract`` when n_band is no multiple of 128 and
     every band is an arbitrary slice of the spectrum.
 
+The two extraction kernels take an ``ExtractPlan`` made here from the
+host starts: checked once, its schedule uploaded once a device.
+
 ``kernel_synth`` and ``kernel_extract`` are the JAX package's
 TETRAEAR_NO_PALLAS_SYNTH / TETRAEAR_PALLAS_EXTRACT switches as keyword
 arguments.
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from tetraear_tpu_torch.device import resolve
+from tetraear_tpu_torch.dsp import cuda_kernels as ck
 from tetraear_tpu_torch.dsp import design
 
 
@@ -233,6 +237,14 @@ class FFTChannelizer:
                                      and self.n_band % 1024 == 0)
         if self.use_extract_rows:
             self.row_start = (self.band_start // 128).astype(np.int32)
+            self.extract_plan = ck.ExtractPlan(
+                "rows", self.row_start, self.n_band // 128,
+                (self.nfft + self.n_band) // 128)
+        elif not (self.aligned or self.quantized):
+            # element extraction (cuda_kernels.band_extract)
+            self.extract_plan = ck.ExtractPlan(
+                "pairs", self.band_start, self.n_band,
+                self.nfft + self.n_band)
 
         # band synthesis tables (dsp/cuda_kernels.band_synth): rolled H1
         # planes, and the layout-native Cooley-Tukey split n_band = P*128
@@ -316,7 +328,6 @@ class FFTChannelizer:
 
         Returns ((C, n_out) complex64 channel blocks @ out_rate,
         new_state)."""
-        from tetraear_tpu_torch.dsp import cuda_kernels as ck
         from tetraear_tpu_torch.dsp import kernels
 
         dev = x.device
@@ -340,8 +351,8 @@ class FFTChannelizer:
         if self.use_extract_rows:
             planes = torch.stack([x_ext.real, x_ext.imag]).reshape(
                 2, -1, 128)
-            got = ck.band_extract_rows(
-                planes, self._dev("row_start", dev), self.n_band // 128)
+            got = ck.band_extract_rows(planes, self.extract_plan,
+                                       self.n_band // 128)
             nat = torch.complex(got[:, 0], got[:, 1]).reshape(
                 c, self.n_band)
         elif self.aligned or self.quantized:
@@ -349,9 +360,8 @@ class FFTChannelizer:
             nat = rows[self._dev("row_idx", dev).long()]
             nat = nat.reshape(c, self.n_band)
         else:
-            got = ck.band_extract(
-                torch.view_as_real(x_ext).contiguous(),
-                self._dev("band_start", dev), self.n_band)
+            got = ck.band_extract(torch.view_as_real(x_ext).contiguous(),
+                                  self.extract_plan, self.n_band)
             nat = torch.view_as_complex(got)          # (C, n_band) centred
         # natural-order band product (the fftshift lives in the rolled
         # filter tables + the (-1)^k sign on the synthesis output)

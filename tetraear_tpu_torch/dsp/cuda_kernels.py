@@ -162,8 +162,8 @@ def build() -> ctypes.CDLL:
                                   + [ci] * 4 + [vp])
     lib.tt_fused_backhalf.argtypes = [vp] * 14 + [ci] * 6 + [vp]
     lib.tt_frame_scan_even.argtypes = [vp] * 4 + [ci] * 4 + [vp]
-    lib.tt_band_extract_rows.argtypes = [vp, cl, vp, vp, ci, ci, vp]
-    lib.tt_band_extract.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.tt_band_extract_staged.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+    lib.tt_band_extract_pairs.argtypes = [vp] * 3 + [ci] * 2 + [vp]
     lib.tt_bit_place.argtypes = [vp] * 5 + [ci] * 5 + [vp]
     lib.tt_ops_probe.argtypes = [ci, vp, vp, vp, ci, ci, vp]
     lib.tt_iir_recursion.argtypes = [vp] * 4 + [ci] * 2 + [vp]
@@ -174,7 +174,7 @@ def build() -> ctypes.CDLL:
     lib.tt_synth_chain.argtypes = [vp, vp, ci] + [vp] * 4
     for fn in (lib.tt_fft2p, lib.tt_fft2p_pass1, lib.tt_band_synth,
                lib.tt_fused_backhalf, lib.tt_frame_scan_even,
-               lib.tt_band_extract_rows, lib.tt_band_extract,
+               lib.tt_band_extract_staged, lib.tt_band_extract_pairs,
                lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion,
                lib.tt_int_rate, lib.tt_tea, lib.tt_viterbi, lib.tt_acelp,
                lib.tt_synth_chain):
@@ -950,44 +950,239 @@ def frame_scan_even_plain(bits: torch.Tensor) -> tuple:
 # kernels 5 and 6: per-carrier band extraction
 # ---------------------------------------------------------------------------
 
-def _check_starts(starts: torch.Tensor, name: str, limit: int,
-                  span: int) -> None:
-    """Every slice [start, start + span) must lie inside [0, limit]."""
-    if starts.numel() == 0:
-        return
-    lo, hi = (int(v) for v in torch.aminmax(starts))
-    if lo < 0 or hi + span > limit:
-        raise ValueError(f"{name}: slices [{lo}, {hi + span}) leave the "
-                         f"{limit} rows of the spectrum")
+# csrc/band_extract.cu's ring (kStages stages of kStageBytes) and its
+# persistent grid: two CTAs on each of the H100 SXM's 132 SMs, and the
+# chunks a CTA should get at least (smaller chunks where the runs are
+# short)
+EXTRACT_STAGES = 4
+EXTRACT_STAGE_BYTES = 16384
+EXTRACT_CTAS = 264
+EXTRACT_CHUNKS_PER_CTA = 4
 
 
-def band_extract_rows(planes: torch.Tensor, row_starts: torch.Tensor,
+def _host_starts(starts, name: str, span: int, n_rows: int) -> np.ndarray:
+    """``starts`` ((C,) int32, a numpy array or a CPU tensor) as numpy,
+    checked: every slice [start, start + span) lies inside n_rows."""
+    if isinstance(starts, torch.Tensor):
+        if starts.device.type != "cpu":
+            raise ValueError(
+                f"{name} on {starts.device}: starts are checked on the host, "
+                f"so make an ExtractPlan of host starts once")
+        if starts.dtype != torch.int32:
+            raise ValueError(f"{name}: dtype {starts.dtype}, expected "
+                             f"torch.int32")
+        starts = starts.numpy()
+    starts = np.asarray(starts)
+    if starts.dtype != np.int32 or starts.ndim != 1:
+        raise ValueError(f"{name}: {starts.dtype} {starts.shape}, expected "
+                         f"(C,) int32")
+    if span < 1:
+        raise ValueError(f"{name}: span {span}")
+    if len(starts):
+        lo, hi = int(starts.min()), int(starts.max())
+        if lo < 0 or hi + span > n_rows:
+            raise ValueError(f"{name}: slices [{lo}, {hi + span}) leave the "
+                             f"{n_rows} rows of the spectrum")
+    return starts.copy()
+
+
+class ExtractPlan:
+    """One band-extraction shape, fixed on the host as a cuFFT plan fixes
+    a transform: the form, the carriers' starts, the band's span and the
+    source's rows.
+
+      * "rows": out[c, pl] = planes[pl, starts[c] : starts[c] + span],
+        planes (2, n_rows, 128) float32, out (C, 2, span, 128);
+      * "pairs": out[c] = x[starts[c] : starts[c] + span], x (n_rows, 2)
+        float32 [re, im] pairs, out (C, span, 2).
+
+    The starts ((C,) int32, a numpy array or a CPU tensor) are checked
+    here, once.  ``table`` is what csrc/band_extract.cu reads, made here
+    and uploaded once a device (``table_on``), so that a launch neither
+    checks nor copies anything between host and card.  Rows (the staged
+    bulk copy): the CTAs' chunk bounds (n_ctas + 1), then n_chunks + 1
+    chunks (src offset; load bytes | first store << 32), then the stores
+    (dst offset; stage offset | bytes << 32), all int64.  Pairs (a
+    thread copy a band): the starts as int64."""
+
+    def __init__(self, form: str, starts, span: int, n_rows: int):
+        if form not in ("rows", "pairs"):
+            raise ValueError(f"form {form!r}: 'rows' or 'pairs'")
+        self.form, self.span, self.n_rows = form, int(span), int(n_rows)
+        self.starts = _host_starts(
+            starts, "row_starts" if form == "rows" else "starts", self.span,
+            self.n_rows)
+        self.row_bytes = 512 if form == "rows" else 8
+        c = len(self.starts)
+        self.out_shape = ((c, 2, self.span, 128) if form == "rows"
+                          else (c, self.span, 2))
+        if form == "rows" and c:
+            self.table, self.n_ctas, self.n_chunks = _extract_schedule(
+                *self.segments())
+        else:
+            self.table = self.starts.astype(np.int64)
+            self.n_ctas, self.n_chunks = c, 0
+        self._on: dict = {}
+
+    def segments(self) -> tuple:
+        """(src, dst) int64 byte offsets of the copied segments and their
+        length in bytes: 2C segments (carrier-major, then plane) for rows,
+        C for pairs."""
+        length = self.span * self.row_bytes
+        c = len(self.starts)
+        if self.form == "rows":
+            pl = np.tile(np.arange(2), c)
+            s = np.repeat(self.starts.astype(np.int64), 2)
+            src = (pl * self.n_rows + s) * 512
+        else:
+            src = self.starts.astype(np.int64) * 8
+        return src, np.arange(len(src), dtype=np.int64) * length, length
+
+    @property
+    def out_bytes(self) -> int:
+        return 4 * math.prod(self.out_shape)
+
+    @property
+    def source_bytes(self) -> int:
+        """Distinct source bytes the slices cover: what the copy must read
+        at least once."""
+        src, _, length = self.segments()
+        s = np.sort(src)
+        return int(length * (len(s) > 0)
+                   + np.minimum(np.diff(s), length).sum())
+
+    def table_on(self, dev: torch.device) -> torch.Tensor:
+        """``table`` on ``dev``, uploaded once."""
+        key = str(dev)
+        if key not in self._on:
+            self._on[key] = torch.from_numpy(self.table).to(dev)
+        return self._on[key]
+
+
+def _extract_schedule(src: np.ndarray, dst: np.ndarray, length: int):
+    """(table, n_ctas, n_chunks) of the staged kernel for byte segments
+    [src, src + length) -> [dst, dst + length), every offset and the
+    length multiples of 16.  Segments sorted by source offset and merged
+    where they overlap make runs; a run is cut into chunks of at most
+    EXTRACT_STAGE_BYTES (less where the runs are short, down to 512
+    bytes), each loaded once; every segment meeting a chunk gets a bulk
+    store of the bytes they share."""
+    stage = EXTRACT_STAGE_BYTES
+    order = np.argsort(src, kind="stable")
+    s, d = src[order], dst[order]
+    hi = s + length
+    new = np.ones(len(s), bool)
+    new[1:] = s[1:] > np.maximum.accumulate(hi)[:-1]
+    run = np.cumsum(new) - 1
+    first = np.flatnonzero(new)
+    run_lo, run_hi = s[first], np.maximum.reduceat(hi, first)
+    # chunks under a stage where the runs are short, so that every CTA
+    # of the grid has EXTRACT_CHUNKS_PER_CTA
+    total = int((run_hi - run_lo).sum())
+    per = EXTRACT_CHUNKS_PER_CTA * EXTRACT_CTAS
+    stage = min(stage, max(512, (-(-total // per) + 15) & ~15))
+    per_run = -(-(run_hi - run_lo) // stage)
+    chunk0 = np.cumsum(per_run) - per_run
+    n_chunks = int(per_run.sum())
+    ch_run = np.repeat(np.arange(len(first)), per_run)
+    ch_lo = run_lo[ch_run] + (np.arange(n_chunks) - chunk0[ch_run]) * stage
+    ch_hi = np.minimum(ch_lo + stage, run_hi[ch_run])
+    # segment i meets chunks k0 .. k1 of its run
+    rel = s - run_lo[run]
+    k0, k1 = rel // stage, (rel + length - 1) // stage
+    per_seg = k1 - k0 + 1
+    seg = np.repeat(np.arange(len(s)), per_seg)
+    k = (chunk0[run[seg]] + k0[seg] + np.arange(len(seg))
+         - np.repeat(np.cumsum(per_seg) - per_seg, per_seg))
+    a = np.maximum(ch_lo[k], s[seg])
+    nbytes = np.minimum(ch_hi[k], s[seg] + length) - a
+    smem, gdst = a - ch_lo[k], d[seg] + a - s[seg]
+    by_chunk = np.argsort(k, kind="stable")
+    k, smem, gdst, nbytes = (v[by_chunk] for v in (k, smem, gdst, nbytes))
+    per_chunk = np.bincount(k, minlength=n_chunks)
+    # the CTAs: contiguous ranges of chunks of about equal bytes moved
+    w = (ch_hi - ch_lo) + np.bincount(k, weights=nbytes, minlength=n_chunks)
+    n_ctas = min(EXTRACT_CTAS, n_chunks)
+    bounds = np.searchsorted(np.cumsum(w) - w / 2,
+                             w.sum() * np.arange(n_ctas + 1) / n_ctas)
+    chunks = np.zeros((n_chunks + 1, 2), np.int64)
+    chunks[:-1, 0] = ch_lo
+    chunks[1:, 1] = np.cumsum(per_chunk) << 32
+    chunks[:-1, 1] += ch_hi - ch_lo
+    stores = np.stack([gdst, smem + (nbytes << 32)], axis=1)
+    table = np.concatenate([bounds.astype(np.int64), chunks.reshape(-1),
+                            stores.reshape(-1)])
+    return table, n_ctas, n_chunks
+
+
+def _plan_for(starts, form: str, span: int, n_rows: int,
+              cpu: bool) -> ExtractPlan | np.ndarray:
+    """On the card, ``starts``, which must be an ExtractPlan of this
+    shape; on the CPU route, the checked host starts as numpy (a plan's,
+    or host starts given)."""
+    if isinstance(starts, ExtractPlan):
+        if (starts.form, starts.span, starts.n_rows) != (form, int(span),
+                                                         n_rows):
+            raise ValueError(
+                f"a {starts.form} plan of span {starts.span} over "
+                f"{starts.n_rows} rows, called as {form} of span {span} "
+                f"over {n_rows}")
+        return starts.starts if cpu else starts
+    if not cpu:
+        raise ValueError(
+            f"band extraction on the card takes an ExtractPlan (made once "
+            f"from host starts), not {type(starts).__name__}")
+    return _host_starts(starts, "row_starts" if form == "rows" else "starts",
+                        int(span), n_rows)
+
+
+def extract_entry(plan: ExtractPlan, src: torch.Tensor,
+                  out: torch.Tensor) -> tuple:
+    """(C entry, its arguments but the stream) of the plan's launch from
+    ``src`` into ``out``, the table uploaded: the launch alone, which
+    ``chip_smoke.py`` also times."""
+    lib = build()
+    table = plan.table_on(src.device)
+    if plan.form == "rows":
+        return lib.tt_band_extract_staged, (
+            _ptr(src), _ptr(out), _ptr(table), plan.n_ctas, plan.n_chunks)
+    return lib.tt_band_extract_pairs, (
+        _ptr(src), _ptr(table), _ptr(out), plan.span, len(plan.starts))
+
+
+def _launch_extract(name: str, plan: ExtractPlan, src: torch.Tensor,
+                    out: torch.Tensor) -> None:
+    if src.data_ptr() % 16:
+        raise ValueError(f"{name}: source storage must be 16-byte aligned")
+    if len(plan.starts):
+        fn, args = extract_entry(plan, src, out)
+        _launch(name, src.device, fn, *args)
+
+
+def band_extract_rows(planes: torch.Tensor, row_starts,
                       rows_per_band: int) -> torch.Tensor:
     """Per-carrier slices of 128-lane rows of the spectrum planes:
-    planes (2, R, 128) f32, row_starts (C,) int32 -> (C, 2, P, 128) f32
-    with out[c, pl] = planes[pl, row_starts[c] : row_starts[c] + P].
+    planes (2, R, 128) f32 -> (C, 2, P, 128) f32 with out[c, pl] =
+    planes[pl, row_starts[c] : row_starts[c] + P].  ``row_starts`` is an
+    ExtractPlan("rows", ., P, R), made once; on the CPU route host starts
+    ((C,) int32) are taken too.
 
     Replaces ``band_extract_rows`` (tetraear_tpu/dsp/pallas_kernels.py),
-    one DMA per carrier there.  Bound: device memory (every byte read
-    and written once).  Design: csrc/band_extract.cu, float4 copies on a
-    (carrier, plane, chunk) grid."""
-    c = row_starts.shape[0] if row_starts.dim() == 1 else -1
-    p = int(rows_per_band)
+    one DMA per carrier there.  Bound: device memory, the distinct source
+    bytes read once (``ExtractPlan.source_bytes``) plus the output.
+    Design: csrc/band_extract.cu, TMA bulk copies through a ring of
+    shared-memory stages, each source chunk loaded once for all the bands
+    that cover it."""
     r_rows = planes.shape[1] if planes.dim() == 3 else -1
     _check(planes, "planes", (2, r_rows, 128), torch.float32)
-    _check(row_starts, "row_starts", (c,), torch.int32)
-    if p < 1:
-        raise ValueError(f"rows_per_band={p}")
-    _check_starts(row_starts, "row_starts", r_rows, p)
-    if _route(planes, row_starts) == "cpu":
-        return band_extract_rows_plain(planes, row_starts, p)
-    if planes.data_ptr() % 16:
-        raise ValueError("planes: storage must be 16-byte aligned")
-    dev = planes.device
-    lib = build()
-    out = torch.empty((c, 2, p, 128), dtype=torch.float32, device=dev)
-    _launch("band_extract_rows", dev, lib.tt_band_extract_rows,
-            _ptr(planes), r_rows * 128, _ptr(row_starts), _ptr(out), p, c)
+    cpu = _route(planes) == "cpu"
+    plan = _plan_for(row_starts, "rows", rows_per_band, r_rows, cpu)
+    if cpu:
+        return band_extract_rows_plain(planes, torch.from_numpy(plan),
+                                       rows_per_band)
+    out = torch.empty(plan.out_shape, dtype=torch.float32,
+                      device=planes.device)
+    _launch_extract("band_extract_rows", plan, planes, out)
     return out
 
 
@@ -998,34 +1193,29 @@ def band_extract_rows_plain(planes, row_starts, p):
     return planes[:, rows, :].transpose(0, 1).contiguous()
 
 
-def band_extract(x_ext_r: torch.Tensor, starts: torch.Tensor,
+def band_extract(x_ext_r: torch.Tensor, starts,
                  n_band: int) -> torch.Tensor:
     """Per-carrier contiguous slices of the interleaved wrap-extended
-    spectrum: x_ext_r (N, 2) f32 [re, im] pairs, starts (C,) int32 ->
-    (C, n_band, 2) f32 with out[c] = x_ext_r[starts[c] : starts[c] +
-    n_band].
+    spectrum: x_ext_r (N, 2) f32 [re, im] pairs -> (C, n_band, 2) f32
+    with out[c] = x_ext_r[starts[c] : starts[c] + n_band].  ``starts``
+    is an ExtractPlan("pairs", ., n_band, N), made once; on the CPU
+    route host starts ((C,) int32) are taken too.
 
     Replaces ``band_extract`` (tetraear_tpu/dsp/pallas_kernels.py).
-    Bound: device memory.  Design: csrc/band_extract.cu; a start is
-    aligned to 8 bytes only, so an odd start reads 8-byte pairs and
-    writes 16-byte vectors."""
-    c = starts.shape[0] if starts.dim() == 1 else -1
+    Bound: device memory, as band_extract_rows.  Design:
+    csrc/band_extract.cu, a CTA of threads a band with 16-byte stores
+    (two 8-byte loads each where the start is odd; pair by pair for an
+    odd n_band): its callers' bands are at most 512 bytes, where a
+    staged bulk copy's load round trip costs more than it saves."""
     n_rows = x_ext_r.shape[0] if x_ext_r.dim() == 2 else -1
     _check(x_ext_r, "x_ext_r", (n_rows, 2), torch.float32)
-    _check(starts, "starts", (c,), torch.int32)
-    n_band = int(n_band)
-    if n_band < 1:
-        raise ValueError(f"n_band={n_band}")
-    _check_starts(starts, "starts", n_rows, n_band)
-    if _route(x_ext_r, starts) == "cpu":
-        return band_extract_plain(x_ext_r, starts, n_band)
-    if x_ext_r.data_ptr() % 16:
-        raise ValueError("x_ext_r: storage must be 16-byte aligned")
-    dev = x_ext_r.device
-    lib = build()
-    out = torch.empty((c, n_band, 2), dtype=torch.float32, device=dev)
-    _launch("band_extract", dev, lib.tt_band_extract, _ptr(x_ext_r),
-            _ptr(starts), _ptr(out), n_band, c)
+    cpu = _route(x_ext_r) == "cpu"
+    plan = _plan_for(starts, "pairs", n_band, n_rows, cpu)
+    if cpu:
+        return band_extract_plain(x_ext_r, torch.from_numpy(plan), n_band)
+    out = torch.empty(plan.out_shape, dtype=torch.float32,
+                      device=x_ext_r.device)
+    _launch_extract("band_extract", plan, x_ext_r, out)
     return out
 
 
