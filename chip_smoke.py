@@ -51,7 +51,9 @@ port's receive paths on the card in phases, one line per result:
      (fleet-afc, fleet-aligned, bench-afc), with launches per block.
 
 Voice: viterbi_decode against its plain version at B = 8192 and 81920
-(and the C++ decoder on 256 blocks); speech, acelp_decode against its
+(and the C++ decoder on 256 blocks), at the corner batch sizes, the
+call and the launch alone, the floor (B = 1, 2) and every launch of the
+voice fleet timed; speech, acelp_decode against its
 plain version (PCM and every state leaf) and the C++ decoder at S = 256
 and 2048 decoder slots x 4 frames, two calls that carry the state, with
 saturating states and frames in some slots, beside the host C++ codec's
@@ -75,8 +77,11 @@ the classic chain through run_offline, the card's PCM with host and with
 device synthesis equal to the CPU run's.
 
 Beside these: tea, the key search (tea_search) against its plain version
-at a large deferred decryption and a bruteforce sweep, and again at each
-deferred launch the fused stream made; the fleet capture carries TEA1 and
+in its three modes at a large deferred decryption and a bruteforce sweep
+and at the corners, and again at each deferred search the fused stream
+made (one launch a block for both cipher families: the call, the launch
+alone, the round trip of upload, launch and fetch, and the floor at
+K = B = W = 1); the fleet capture carries TEA1 and
 TEA2 carriers, decrypted on every fleet path; stream, the live path
 (Pipeline.process_block, a checkpoint after block 2 onto a fresh
 Pipeline) fused and classic with two frame workers, each held against
@@ -100,11 +105,13 @@ Two other modes print no result line and exit non-zero:
     python3 chip_smoke.py --rehearse   # the phases' control flow on the
                                        # CPU at a tiny size (plain
                                        # versions; nothing is built)
-    python3 chip_smoke.py --extract-parent DIR
-                                       # the extraction kernels in turns
-                                       # with the band_extract.cu (and
-                                       # common.cuh) in DIR: launch alone
-                                       # and call, one JSON line a case
+    python3 chip_smoke.py --parent DIR # each redesigned kernel whose
+                                       # earlier source DIR holds
+                                       # (band_extract.cu, tea.cu,
+                                       # viterbi.cu, beside common.cuh) in
+                                       # turns with this checkout's on the
+                                       # same inputs: launch alone and
+                                       # call, one JSON line a case
 """
 
 import json
@@ -306,38 +313,69 @@ def extract_random(c: int, nfft_: int, nb: int, planes, rng) -> list:
     return out
 
 
-# the C library of an earlier band_extract.cu (--extract-parent), timed in
-# turns with this checkout's extraction kernels by extract_result
-PARENT_EXTRACT = None
+# the C libraries of earlier sources of the kernels a PR redesigns
+# (--parent DIR), each timed in turns with this checkout's kernel:
+# {source name: ctypes.CDLL}
+PARENT = {}
+PARENT_SOURCES = ("band_extract.cu", "tea.cu", "viterbi.cu")
 
 
-def build_parent_extract(parent: Path):
-    """The earlier ``band_extract.cu`` in ``parent`` (beside the
-    ``common.cuh`` it includes), built alone with nvcc.  Its C entries are
-    the thread-copy kernels' tt_band_extract_rows(planes, plane_len,
-    row_start, out, P, C, stream) and tt_band_extract(x, start, out,
-    n_band, C, stream), the starts int32 on the card."""
+def build_parent(parent: Path) -> dict:
+    """Each of PARENT_SOURCES that ``parent`` holds (beside the
+    ``common.cuh`` it includes), built alone with nvcc, all started
+    together.  Their C entries are the earlier ones:
+    tt_band_extract_rows(planes, plane_len, row_start, out, P, C, stream)
+    and tt_band_extract(x, start, out, n_band, C, stream), the starts
+    int32 on the card (PRs 2-8); tt_tea(mode, tea1, v0, v1, kw,
+    key_words, K, B, W, out, stream), one family a launch (PRs 5-9);
+    tt_viterbi(soft, ordered, bfi, B, pos, sign, crc, stream), the tables
+    copied from host memory on every call (PRs 6-9)."""
     import ctypes
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
-    so = ck.BUILD_DIR.parent / "parent_extract" / "libband_extract.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run(
-        [ck._nvcc(), *ck._flags("band_extract.cu"), "-shared", "-o", str(so),
-         str(parent / "band_extract.cu")], capture_output=True, text=True)
-    if r.returncode:
-        fail(f"nvcc of {parent / 'band_extract.cu'}:\n{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.tt_band_extract_rows.argtypes = [vp, ctypes.c_longlong, vp, vp, ci,
-                                         ci, vp]
-    lib.tt_band_extract.argtypes = [vp, vp, vp, ci, ci, vp]
-    lib.tt_band_extract_rows.restype = lib.tt_band_extract.restype = ci
-    return lib
+    out_dir = ck.BUILD_DIR.parent / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = [n for n in PARENT_SOURCES if (parent / n).is_file()]
+    procs = {n: subprocess.Popen(
+        [ck._nvcc(), *ck._flags(n), "-shared", "-o",
+         str(out_dir / f"lib{Path(n).stem}.so"), str(parent / n)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in names}
+    libs = {}
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for n, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"nvcc of {parent / n}:\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{Path(n).stem}.so"))
+        if n == "band_extract.cu":
+            lib.tt_band_extract_rows.argtypes = [vp, cl, vp, vp, ci, ci, vp]
+            lib.tt_band_extract.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.tt_band_extract_rows.restype = lib.tt_band_extract.restype \
+                = ci
+        elif n == "tea.cu":
+            lib.tt_tea.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci, ci, vp,
+                                   vp]
+            lib.tt_tea.restype = ci
+        else:
+            lib.tt_viterbi.argtypes = [vp] * 3 + [ci] + [vp] * 4
+            lib.tt_viterbi.restype = ci
+        libs[n] = lib
+    say(f"parent: built {names} from {parent}")
+    return libs
+
+
+def turns(parent_fn, this_fn, reps: int, queued: bool = True) -> dict:
+    """Device times in turns on the same inputs: earlier, this, this,
+    earlier (event_ms, launches queued behind a sleep of the card)."""
+    t = [event_ms(f, reps, queued=queued)
+         for f in (parent_fn, this_fn, this_fn, parent_fn)]
+    return {"parent_ms": [t[0], t[3]], "this_ms": t[1:3]}
 
 
 def parent_turns(what: str, src, plan, starts, want, launch,
                  reps: int) -> dict:
-    """The earlier kernel (PARENT_EXTRACT) on the same inputs: equal to the
+    """The earlier kernel (PARENT's band_extract.cu) on the same inputs:
+    equal to the
     plain version; its launch alone queued in turns with ``launch``
     (earlier, this, this, earlier), and its call as its wrapper made it
     (the starts' torch.aminmax read on the host, then the launch)."""
@@ -346,11 +384,11 @@ def parent_turns(what: str, src, plan, starts, want, launch,
     out = torch.empty_like(want)
     stream = ck._stream(src.device)
     if plan.form == "rows":
-        fn = PARENT_EXTRACT.tt_band_extract_rows
+        fn = PARENT["band_extract.cu"].tt_band_extract_rows
         args = (ck._ptr(src), plan.n_rows * 128, ck._ptr(starts),
                 ck._ptr(out), plan.span, len(plan.starts), stream)
     else:
-        fn = PARENT_EXTRACT.tt_band_extract
+        fn = PARENT["band_extract.cu"].tt_band_extract
         args = (ck._ptr(src), ck._ptr(starts), ck._ptr(out), plan.span,
                 len(plan.starts), stream)
 
@@ -381,7 +419,7 @@ def extract_result(what: str, src, plan, starts, gather, reps: int,
     through ctypes, plan uploaded and output allocated before, launches
     queued behind a sleep of the card), the plain version and the gather;
     the bound from the distinct source bytes read once plus the output
-    and the starts; with --extract-parent, the earlier kernel's times
+    and the starts; with --parent, the earlier kernel's times
     (parent_turns)."""
     import torch
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
@@ -406,7 +444,7 @@ def extract_result(what: str, src, plan, starts, gather, reps: int,
             if fn(*args, stream):
                 fail(f"{what}: the launch failed")
         launch_ms = event_ms(launch, xreps, queued=True)
-        if PARENT_EXTRACT is not None:
+        if "band_extract.cu" in PARENT:
             turns = parent_turns(what, src, plan, starts, want, launch, xreps)
         if not torch.equal(got, want):
             fail(f"{what}: the launches alone left another output")
@@ -722,11 +760,95 @@ TEA_SIZES = (("deferred", 16, 4096), ("bruteforce", 65536, 256))
 TEA_KEY_BYTES = {"TEA1": 10, "TEA2": 16}
 
 
+def tea_out(mode: int, k: int, b: int, w: int, dev):
+    import torch
+    if mode == 1:
+        return torch.empty((k, b), dtype=torch.int32, device=dev)
+    if mode == 2:
+        return torch.empty((b, 8 * w), dtype=torch.uint8, device=dev)
+    return torch.empty((k, b, 8 * w), dtype=torch.uint8, device=dev)
+
+
+def tea_launch(mode: int, v0, v1, kw1, kw2, out, what: str):
+    """This checkout's tea_search launch alone (the C entry through ctypes,
+    output allocated before) as a function."""
+    from tetraear_tpu_torch.crypto import batch as tb
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    args = tb.kernel_args(mode, v0, v1, kw1, kw2, out)
+    if DEV == "cpu":                 # the rehearsal: nothing is built
+        return lambda: None
+    fn = ck.build().tt_tea
+    args = (*args, ck._stream(v0.device))
+
+    def launch():
+        if fn(*args):
+            fail(f"{what}: the launch failed")
+    return launch
+
+
+def parent_tea(mode: int, v0, v1, kw, tea1: bool, what: str) -> tuple:
+    """The earlier tea.cu (one family a launch) on the same inputs:
+    (its output, its launch alone, its call as its wrapper made it: the
+    checks, torch.empty, the launch)."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    lib = PARENT["tea.cu"]
+    b, w = v0.shape
+    k = kw.shape[0]
+    n_kw = 5 if tea1 else 4
+    stream = ck._stream(v0.device)
+    out = tea_out(mode, k, b, w, v0.device)
+
+    def run(o):
+        if lib.tt_tea(mode, int(tea1), ck._ptr(v0), ck._ptr(v1),
+                      ck._ptr(kw), n_kw, k, b, w, ck._ptr(o), stream):
+            fail(f"{what}: the earlier kernel's launch failed")
+
+    def call():
+        ck._check(v0, "v0", (b, w), torch.int32)
+        ck._check(v1, "v1", (b, w), torch.int32)
+        ck._check(kw, "key_words", (k, n_kw), torch.int32)
+        o = tea_out(mode, k, b, w, v0.device)
+        run(o)
+        return o
+    run(out)
+    return out, lambda: run(out), call
+
+
+def tea_modes(what: str, v0, v1, kw, kb, tea1: bool, outs: dict,
+              reps: int) -> dict:
+    """tea_search's three modes on one family: the call and the launch
+    alone; with --parent, the earlier kernel's output equal to this one's
+    and its launch in turns with this launch."""
+    from tetraear_tpu_torch.crypto import batch as tb
+    calls = {0: lambda: tb.tea_decrypt(v0, v1, kw, tea1),
+             1: lambda: tb.tea_search(v0, v1, kw, tea1),
+             2: lambda: tb.tea_decrypt_pairs(v0, v1, kb, tea1)}
+    res = {}
+    for mode, name in ((0, "decrypt"), (1, "search"), (2, "pairs")):
+        key = kb if mode == 2 else kw
+        fam = (key, None) if tea1 else (None, key)
+        launch = tea_launch(mode, v0, v1, *fam, outs[mode], what)
+        r = {"ms": event_ms(calls[mode], reps),
+             "launch_ms": event_ms(launch, max(reps, 20), queued=True)}
+        if "tea.cu" in PARENT and DEV != "cpu":
+            import torch
+            out, p_launch, p_call = parent_tea(mode, v0, v1, key, tea1,
+                                               f"{what} {name}")
+            if not torch.equal(out, outs[mode]):
+                fail(f"{what} {name}: the earlier kernel differs")
+            r.update(turns(p_launch, launch, max(reps, 20)),
+                     parent_call_ms=event_ms(p_call, reps))
+        res[name] = r
+    return res
+
+
 def phase_tea(seed: int, reps: int, int_rates: dict) -> dict:
     """tea_search against its plain version at both sizes, TEA1 and TEA2,
     32-byte payloads: scores, plaintexts and the best-key pairs bit-equal,
-    a few pairs checked against TEADecryptor.  Returns {size: result} of
-    the search mode (TEA1 times; TEA2's beside them)."""
+    a few pairs checked against TEADecryptor; each mode's call and launch
+    alone (and with --parent the earlier kernel's in turns).  Returns
+    {size_alg: result} (the search mode's numbers, the others beside)."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.crypto import batch as tb
@@ -771,14 +893,19 @@ def phase_tea(seed: int, reps: int, int_rates: dict) -> dict:
                 if d_host[ki, bi].tobytes() != want:
                     fail(f"tea_search {size} {alg}: key {ki} payload {bi} "
                          f"differs from TEADecryptor")
-            del d_k, d_p, d_host, q_k, q_p
+            del d_p, d_host, q_p
+            modes = tea_modes(f"tea_search {size} {alg}", v0, v1, kw, kb,
+                              tea1, {0: d_k, 1: s_k, 2: q_k}, reps)
             n_blocks = k * b * 4
             r = {"max_abs_err": 0.0, "tol": 0.0, "keys": k, "payloads": b,
                  "bytes_per_payload": 32,
-                 "ms": event_ms(lambda: tb.tea_search(v0, v1, kw, tea1),
-                                reps),
-                 "decrypt_ms": event_ms(
-                     lambda: tb.tea_decrypt(v0, v1, kw, tea1), reps),
+                 "ms": modes["search"]["ms"],
+                 "launch_ms": modes["search"]["launch_ms"],
+                 "decrypt_ms": modes["decrypt"]["ms"],
+                 "decrypt_launch_ms": modes["decrypt"]["launch_ms"],
+                 "pairs_ms": modes["pairs"]["ms"],
+                 "pairs_launch_ms": modes["pairs"]["launch_ms"],
+                 "modes": modes,
                  "plain_ms": event_ms(
                      lambda: tb.tea_search_plain(v0, v1, kw, tea1),
                      min(reps, 2)),
@@ -792,115 +919,320 @@ def phase_tea(seed: int, reps: int, int_rates: dict) -> dict:
             r["decrypt_bound_ms"] = bound(
                 nbytes(v0, v1, kw) + k * b * 32, 0.0,
                 issue=TEA_INSTR_PER_BLOCK[alg] * n_blocks)["bound_ms"]
-            del v0, v1, kw, s_k, s_p
+            r["pairs_bound_ms"] = bound(
+                nbytes(v0, v1, kb) + b * 32, 0.0,
+                issue=TEA_INSTR_PER_BLOCK[alg] * b * 4)["bound_ms"]
+            del v0, v1, kw, kb, s_k, s_p, d_k, q_k
             res[f"{size}_{alg}"] = r
+            par = "".join(
+                f"; earlier {m} launch {v['parent_ms'][0]:.4f}, "
+                f"{v['parent_ms'][1]:.4f} (this {v['this_ms'][0]:.4f}, "
+                f"{v['this_ms'][1]:.4f}), its call {v['parent_call_ms']:.4f}"
+                for m, v in modes.items() if "parent_ms" in v)
             say(f"kernel tea_search {size} {alg} K={k} B={b} L=32: scores, "
                 f"plaintexts and best-key pairs bit-equal to the plain "
-                f"version, spot pairs equal to TEADecryptor; search "
-                f"{r['ms']:.4f} ms, decrypt {r['decrypt_ms']:.4f} ms "
-                f"(bound {r['decrypt_bound_ms']:.4f}), plain search "
+                f"version, spot pairs equal to TEADecryptor; search call "
+                f"{r['ms']:.4f} ms / launch {r['launch_ms']:.4f}, decrypt "
+                f"{r['decrypt_ms']:.4f} / {r['decrypt_launch_ms']:.4f} "
+                f"(bound {r['decrypt_bound_ms']:.4f}), pairs "
+                f"{r['pairs_ms']:.4f} / {r['pairs_launch_ms']:.4f} (bound "
+                f"{r['pairs_bound_ms']:.5f}), plain search "
                 f"{r['plain_ms']:.4f} ms, library call none, bound "
                 f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} "
                 f"bytes, {r['ops']:.3e} integer instructions at "
                 f"{ISSUE_PER_CLK_SM:.0f} a clock an SM; at the addition "
-                f"rate read, one pipe: {r['add_rate_read_ms']:.4f} ms)")
+                f"rate read, one pipe: {r['add_rate_read_ms']:.4f} ms)"
+                f"{par}")
     sync()
     return res
 
 
-def tea_entry(tea: dict, path: list, counts: dict) -> dict:
-    """The kernels line's tea_search entry: the decrypt mode at the
-    largest deferred launch of the fused stream (the mode and shape the
-    path runs) as its numbers; every launch of the path and the two fixed
-    sizes (search and decrypt modes) beside them."""
+# (K1, K2, B, W) of the corner launches: one key, one payload, one block,
+# W 9, odd B, one family pending, the live path's largest shape
+TEA_CORNERS = ((1, 0, 1, 1), (0, 1, 1, 1), (1, 1, 1, 9), (0, 3, 17, 9),
+               (5, 0, 33, 1), (1, 2, 171, 9), (13, 12, 1072, 8))
+
+
+def check_tea_corners(seed: int) -> int:
+    """tea_search at the corners (TEA_CORNERS): the fused decrypt, and each
+    family's search and pairs modes, bit-equal to the plain versions.
+    Returns the number of launches checked."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.crypto import batch as tb
+    rng = np.random.default_rng(seed)
+    n = 0
+    for k1, k2, b, w in TEA_CORNERS:
+        pay = rng.integers(0, 256, (b, 8 * w), dtype=np.uint8)
+        v0, v1, kw1, kw2 = tb._upload(
+            [*tb._payload_to_words(pay),
+             tb._keys_to_words_tea1(rng.integers(0, 256, (k1, 10),
+                                                 dtype=np.uint8)),
+             tb._keys_to_words_tea2(rng.integers(0, 256, (k2, 16),
+                                                 dtype=np.uint8))], DEV)
+        what = f"tea_search corner K={k1}+{k2} B={b} W={w}"
+        got = tb.tea_decrypt_fused(v0, v1, kw1, kw2)
+        if not torch.equal(got, tb.tea_decrypt_fused_plain(v0, v1, kw1,
+                                                           kw2)):
+            fail(f"{what}: the fused decrypt differs from the plain version")
+        n += 1
+        for kw, tea1 in ((kw1, True), (kw2, False)):
+            if not kw.shape[0]:
+                continue
+            kb = kw[torch.arange(b, device=kw.device) % kw.shape[0]]
+            kb = kb.contiguous()
+            if not (torch.equal(tb.tea_search(v0, v1, kw, tea1),
+                                tb.tea_search_plain(v0, v1, kw, tea1))
+                    and torch.equal(
+                        tb.tea_decrypt_pairs(v0, v1, kb, tea1),
+                        tb.tea_decrypt_pairs_plain(v0, v1, kb, tea1))):
+                fail(f"{what}: the search or pairs mode differs from the "
+                     f"plain version ({'TEA1' if tea1 else 'TEA2'})")
+            n += 2
+    sync()
+    say(f"kernel tea_search corners: {n} launches (the fused decrypt, each "
+        f"family's search and pairs) at (K1, K2, B, W) in {TEA_CORNERS} "
+        f"bit-equal to the plain versions")
+    return n
+
+
+def tea_entry(tea: dict, path: list, counts: dict, floor: dict) -> dict:
+    """The kernels line's tea_search entry: the fused decrypt launch at
+    the largest deferred search of the fused stream (the mode and shape
+    the path runs) as its numbers; every launch of the path, the floor and
+    the two fixed sizes (three modes) beside them."""
     src, replaces = KERNELS["tea_search"]
-    r = max(path, key=lambda p: p["keys"] * p["payloads"] * p["length"])
+    r = max(path, key=lambda p: p["items"])
     entry = {"name": "tea_search", "route": "cuda", "source": src,
              "replaces": replaces, "launches": counts["tea_search"],
              "max_abs_err": max(p["max_abs_err"] for p in path),
-             "ms": r["ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": None,
-             "shape": f"K={r['keys']} B={r['payloads']} L={r['length']} "
-                      f"{r['alg']}, decrypt mode (a deferred launch of the "
+             "ms": r["ms"], "launch_ms": r["launch_ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None,
+             "floor_ms": floor["launch_ms"],
+             "shape": f"K={r['keys1']}+{r['keys2']} B={r['payloads']} "
+                      f"L={r['length']}, TEA1 and TEA2 in one decrypt "
+                      f"launch (the deferred search of a block of the "
                       f"fused stream)",
-             "path_launches": path}
+             "path_launches": path, "floor": floor}
     for key, v in tea.items():
-        entry[key] = {k: v[k] for k in ("keys", "payloads", "ms",
-                                        "decrypt_ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "decrypt_bound_ms",
-                                        "add_rate_read_ms", "bytes",
-                                        "ops")}
+        entry[key] = {k: v[k] for k in (
+            "keys", "payloads", "ms", "launch_ms", "decrypt_ms",
+            "decrypt_launch_ms", "pairs_ms", "pairs_launch_ms", "plain_ms",
+            "bound_ms", "bound_by", "decrypt_bound_ms", "pairs_bound_ms",
+            "add_rate_read_ms", "bytes", "ops")}
     return entry
 
 
 def record_tea_calls(calls: list):
-    """Wrap crypto.batch.tea_decrypt_batch, which batch_decrypt_frames
-    calls once a cipher family for a block's pending frames, so that the
-    inputs of each deferred launch land in ``calls`` as (payloads, keys,
-    algorithm); returns the function that undoes the wrap."""
+    """Wrap crypto.batch.tea_decrypt_families, which batch_decrypt_frames
+    calls once a block for its pending frames (both cipher families), so
+    that the inputs of each deferred search land in ``calls`` as
+    (payloads, TEA1 keys, TEA2 keys); returns the function that undoes
+    the wrap."""
     import numpy as np
     from tetraear_tpu_torch.crypto import batch as tb
-    orig = tb.tea_decrypt_batch
+    orig = tb.tea_decrypt_families
 
-    def recording(payloads, keys, algorithm="TEA1", device=None):
-        calls.append((np.array(payloads, np.uint8), list(keys), algorithm))
-        return orig(payloads, keys, algorithm, device=device)
+    def recording(payloads, tea1_keys, tea2_keys, device=None):
+        calls.append((np.array(payloads, np.uint8), list(tea1_keys),
+                      list(tea2_keys)))
+        return orig(payloads, tea1_keys, tea2_keys, device=device)
 
-    tb.tea_decrypt_batch = recording
+    tb.tea_decrypt_families = recording
 
     def undo():
-        tb.tea_decrypt_batch = orig
+        tb.tea_decrypt_families = orig
     return undo
 
 
+def wall_ms(fn, reps: int) -> float:
+    """Mean host wall time of fn() (which ends in a fetch) over reps, after
+    one warm-up call."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def tea_floor(reps: int) -> dict:
+    """The fused decrypt's launch alone at K = 1, B = 1, W = 1 (TEA2): one
+    block's 64 half rounds plus a launch, the latency floor; with
+    --parent the earlier kernel's in turns."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.crypto import batch as tb
+    rng = np.random.default_rng(3)
+    v0, v1, kw1, kw2 = tb._upload(
+        [*tb._payload_to_words(rng.integers(0, 256, (1, 8), np.uint8)),
+         np.zeros((0, 5), np.uint32),
+         tb._keys_to_words_tea2(rng.integers(0, 256, (1, 16), np.uint8))],
+        DEV)
+    out = tb.tea_decrypt_fused(v0, v1, kw1, kw2)
+    launch = tea_launch(0, v0, v1, None, kw2, out, "tea_search floor")
+    r = {"shape": "K=1 B=1 W=1 TEA2",
+         "launch_ms": event_ms(launch, max(reps, 50), queued=True)}
+    if "tea.cu" in PARENT and DEV != "cpu":
+        p_out, p_launch, _ = parent_tea(0, v0, v1, kw2, False,
+                                        "tea_search floor")
+        if not torch.equal(p_out, out):
+            fail("tea_search floor: the earlier kernel differs")
+        r.update(turns(p_launch, launch, max(reps, 50)))
+    say(f"kernel tea_search floor (K=1 B=1 W=1): launch alone "
+        f"{r['launch_ms']:.5f} ms"
+        + (f"; earlier {r['parent_ms']}, this {r['this_ms']} in turns"
+           if "parent_ms" in r else ""))
+    return r
+
+
 def phase_tea_path(calls: list, reps: int) -> list:
-    """tea_search on the inputs of each deferred launch a stream made
-    (``record_tea_calls``): the decrypt mode it ran there and the search
-    mode bit-equal to their plain versions, a few pairs equal to
-    TEADecryptor; the decrypt mode timed beside its plain version and
-    bound.  Returns one result a launch."""
+    """tea_search on the inputs of each deferred search a stream made
+    (``record_tea_calls``): the fused decrypt it ran there (one launch,
+    both families) and each family's search mode bit-equal to their plain
+    versions, a few pairs equal to TEADecryptor, the fused call without a
+    synchronisation; the call, the launch alone, the plain version and the
+    bound, and the deferred decryption's device round trip
+    (tea_decrypt_families: one upload, the launch, one fetch; host wall).
+    With --parent, the earlier kernel on the same inputs: its two launches
+    (one a family) in turns with the fused one, and its round trip as its
+    wrapper made it (a family: three uploads, the launch, a fetch) in
+    turns with this one.  Returns one result a search."""
     import torch
     from tetraear_tpu_torch.crypto import batch as tb
     from tetraear_tpu_torch.crypto.tea import TEADecryptor
     if not calls:
         fail("tea path: the stream made no deferred key search")
     res = []
-    for pay, keys, alg in calls:
-        v0, v1, kw, tea1, b = tb._device_words(pay, keys, alg, DEV)
-        k, w = kw.shape[0], v0.shape[1]
-        d_k = tb.tea_decrypt(v0, v1, kw, tea1)
-        d_p = tb.tea_decrypt_plain(v0, v1, kw, tea1)
-        s_k = tb.tea_search(v0, v1, kw, tea1)
-        s_p = tb.tea_search_plain(v0, v1, kw, tea1)
-        if not (torch.equal(d_k, d_p) and torch.equal(s_k, s_p)):
-            fail(f"tea path {alg} K={k} B={b} L={8 * w}: plaintext bytes "
-                 f"{(d_k != d_p).sum().item()}, scores "
-                 f"{(s_k != s_p).sum().item()} differ from the plain "
-                 f"version")
+    for pay, keys1, keys2 in calls:
+        v0, v1, kw1, kw2 = tb._upload(
+            [*tb._payload_to_words(pay),
+             tb._keys_to_words_tea1(tb._key_matrix(keys1, 10)),
+             tb._keys_to_words_tea2(tb._key_matrix(keys2, 16))], DEV)
+        (b, w), k1, k2 = v0.shape, len(keys1), len(keys2)
+        what = f"tea path K={k1}+{k2} B={b} L={8 * w}"
+        d_k = tb.tea_decrypt_fused(v0, v1, kw1, kw2)
+        d_p = tb.tea_decrypt_fused_plain(v0, v1, kw1, kw2)
+        if not torch.equal(d_k, d_p):
+            fail(f"{what}: {(d_k != d_p).sum().item()} plaintext bytes "
+                 f"differ from the plain version")
+        for kw, tea1 in ((kw1, True), (kw2, False)):
+            if kw.shape[0] and not torch.equal(
+                    tb.tea_search(v0, v1, kw, tea1),
+                    tb.tea_search_plain(v0, v1, kw, tea1)):
+                fail(f"{what}: the search mode's scores differ from the "
+                     f"plain version")
         d_host = d_k.cpu().numpy()
-        for ki, bi in ((0, 0), (k - 1, b - 1), (k // 2, b // 2)):
-            want = TEADecryptor(bytes(keys[ki]), alg).decrypt(
-                pay[bi].tobytes())
-            if d_host[ki, bi].tobytes() != want:
-                fail(f"tea path {alg}: key {ki} payload {bi} differs from "
+        keys = [(k, "TEA1") for k in keys1] + [(k, "TEA2") for k in keys2]
+        for ki, bi in ((0, 0), (k1 + k2 - 1, b - 1), (k1, b // 2),
+                       ((k1 + k2) // 2, b // 3)):
+            key, alg = keys[min(ki, len(keys) - 1)]
+            want = TEADecryptor(bytes(key), alg).decrypt(pay[bi].tobytes())
+            if d_host[min(ki, len(keys) - 1), bi].tobytes() != want:
+                fail(f"{what}: key {ki} payload {bi} differs from "
                      f"TEADecryptor")
-        r = {"alg": alg, "keys": k, "payloads": b, "length": 8 * w,
-             "max_abs_err": 0.0,
-             "ms": event_ms(lambda: tb.tea_decrypt(v0, v1, kw, tea1), reps),
+        no_sync(what, lambda: tb.tea_decrypt_fused(v0, v1, kw1, kw2))
+        launch = tea_launch(0, v0, v1, kw1, kw2, d_k, what)
+        r = {"keys1": k1, "keys2": k2, "payloads": b, "length": 8 * w,
+             "items": (k1 + k2) * b * w, "max_abs_err": 0.0,
+             "ms": event_ms(lambda: tb.tea_decrypt_fused(v0, v1, kw1, kw2),
+                            reps),
+             "launch_ms": event_ms(launch, max(reps, 50), queued=True),
              "plain_ms": event_ms(
-                 lambda: tb.tea_decrypt_plain(v0, v1, kw, tea1), reps),
-             **bound(nbytes(v0, v1, kw, d_k), 0.0,
-                     issue=TEA_INSTR_PER_BLOCK[alg] * k * b * w)}
+                 lambda: tb.tea_decrypt_fused_plain(v0, v1, kw1, kw2), 2),
+             "round_trip_ms": wall_ms(
+                 lambda: tb.tea_decrypt_families(pay, keys1, keys2, DEV),
+                 reps),
+             **bound(nbytes(v0, v1, kw1, kw2, d_k), 0.0,
+                     issue=(TEA_INSTR_PER_BLOCK["TEA1"] * k1
+                            + TEA_INSTR_PER_BLOCK["TEA2"] * k2) * b * w)}
+        if "tea.cu" in PARENT and DEV != "cpu":
+            r.update(parent_tea_path(pay, keys1, keys2, v0, v1, kw1, kw2,
+                                     d_k, launch, what, reps))
         res.append(r)
-        say(f"kernel tea_search on a deferred launch of the stream, {alg} "
-            f"K={k} B={b} L={8 * w}: plaintexts and scores bit-equal to the "
-            f"plain version, spot pairs equal to TEADecryptor; decrypt "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library call "
-            f"none, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        say(f"kernel tea_search on a deferred search of the stream, "
+            f"K={k1}+{k2} B={b} L={8 * w}, one launch: plaintexts and "
+            f"scores bit-equal to the plain version, spot pairs equal to "
+            f"TEADecryptor, no synchronisation; call {r['ms']:.4f} ms, "
+            f"launch alone {r['launch_ms']:.4f}, plain {r['plain_ms']:.4f} "
+            f"ms, library call none, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}; the round trip (upload, launch, fetch) "
+            f"{r['round_trip_ms']:.4f} ms"
+            + (f"; earlier: launches {r['parent_ms']} (this "
+               f"{r['this_ms']}) in turns, its calls "
+               f"{r['parent_call_ms']:.4f}, its round trip "
+               f"{r['parent_round_trip_ms']} (this "
+               f"{r['this_round_trip_ms']}) in turns"
+               if "parent_ms" in r else ""))
     sync()
     return res
+
+
+def parent_tea_path(pay, keys1, keys2, v0, v1, kw1, kw2, d_k, launch,
+                    what: str, reps: int) -> dict:
+    """The earlier tea.cu on one deferred search: a launch a family, their
+    outputs equal to the fused one's; both launches in turns with the
+    fused launch, both calls; its round trip as its wrapper made it (for
+    each family: payload words and key words uploaded as three tensors,
+    the launch, the fetch) in turns with tea_decrypt_families."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.crypto import batch as tb
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    parts, launches, p_calls = [], [], []
+    for kw, tea1 in ((kw1, True), (kw2, False)):
+        if kw.shape[0]:
+            out, p_launch, p_call = parent_tea(0, v0, v1, kw, tea1, what)
+            parts.append(out)
+            launches.append(p_launch)
+            p_calls.append(p_call)
+    if not torch.equal(torch.cat(parts), d_k):
+        fail(f"{what}: the earlier kernel differs from the fused launch")
+
+    def both_launches():
+        for f in launches:
+            f()
+
+    def both_calls():
+        for f in p_calls:
+            f()
+
+    def parent_round_trip():
+        dev = v0.device
+        got = []
+        for keys, alg in ((keys1, "TEA1"), (keys2, "TEA2")):
+            if not keys:
+                continue
+            tea1 = alg == "TEA1"
+            w0, w1 = tb._payload_to_words(pay)
+            kwh = (tb._keys_to_words_tea1(tb._key_matrix(keys, 10)) if tea1
+                   else tb._keys_to_words_tea2(tb._key_matrix(keys, 16)))
+            t = [torch.from_numpy(np.ascontiguousarray(a, np.uint32)
+                                  .view(np.int32)).to(dev)
+                 for a in (w0, w1, kwh)]
+            o = tea_out(0, len(keys), *w0.shape, dev)
+            lib = PARENT["tea.cu"]
+            if lib.tt_tea(0, int(tea1), *(ck._ptr(x) for x in t),
+                          5 if tea1 else 4, len(keys), *w0.shape,
+                          ck._ptr(o), ck._stream(dev)):
+                fail(f"{what}: the earlier kernel's launch failed")
+            got.append(o.cpu().numpy())
+        return got
+
+    def this_round_trip():
+        return tb.tea_decrypt_families(pay, keys1, keys2, DEV)
+
+    if not np.array_equal(np.concatenate(parent_round_trip()),
+                          this_round_trip()):
+        fail(f"{what}: the earlier round trip's plaintexts differ")
+    t = [wall_ms(f, reps) for f in (parent_round_trip, this_round_trip,
+                                     this_round_trip, parent_round_trip)]
+    return {**turns(both_launches, launch, max(reps, 50)),
+            "parent_call_ms": event_ms(both_calls, reps),
+            "parent_round_trip_ms": [t[0], t[3]],
+            "this_round_trip_ms": t[1:3]}
 
 
 def ops_inputs() -> dict:
@@ -2210,10 +2542,100 @@ def check_viterbi(soft_t, what: str, ordered=None, bfi=None) -> None:
              f"differ from the plain version")
 
 
+def viterbi_launch(soft, ordered, bfi, what: str):
+    """This checkout's viterbi_decode launch alone (the C entry through
+    ctypes, table uploaded and outputs allocated before)."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.voice import viterbi
+    if DEV == "cpu":                 # the rehearsal: nothing is built
+        return lambda: None
+    fn = ck.build().tt_viterbi
+    args = (*viterbi.kernel_args(soft, ordered, bfi), ck._stream(soft.device))
+
+    def launch():
+        if fn(*args):
+            fail(f"{what}: the launch failed")
+    return launch
+
+
+_PARENT_V1_TABLES = None
+
+
+def parent_viterbi(soft, what: str) -> tuple:
+    """The earlier viterbi.cu on ``soft``: (ordered, bfi as bool, its launch
+    alone, its call as its wrapper made it: torch.empty twice, the launch
+    with the three table copies from host memory, bfi.bool())."""
+    global _PARENT_V1_TABLES
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.voice import viterbi
+    if _PARENT_V1_TABLES is None:
+        _PARENT_V1_TABLES = (viterbi._K_POS.astype(np.int16).reshape(-1),
+                             viterbi._SIGNS.astype(np.int8).reshape(-1),
+                             np.ascontiguousarray(viterbi._K_CRC.reshape(-1)))
+    pos, sign, crc = _PARENT_V1_TABLES
+    lib = PARENT["viterbi.cu"]
+    b = soft.shape[0]
+    stream = ck._stream(soft.device)
+
+    def run(o, f):
+        if lib.tt_viterbi(ck._ptr(soft), ck._ptr(o), ck._ptr(f), b,
+                          pos.ctypes.data, sign.ctypes.data, crc.ctypes.data,
+                          stream):
+            fail(f"{what}: the earlier kernel's launch failed")
+
+    def call():
+        ck._check(soft, "soft", (b, 432), torch.int32)
+        o = torch.empty((b, 286), dtype=torch.uint8, device=soft.device)
+        f = torch.empty((b,), dtype=torch.uint8, device=soft.device)
+        run(o, f)
+        return o, f.bool()
+    o = torch.empty((b, 286), dtype=torch.uint8, device=soft.device)
+    f = torch.empty((b,), dtype=torch.uint8, device=soft.device)
+    run(o, f)
+    return o, f.bool(), lambda: run(o, f), call
+
+
+def viterbi_times(t, ordered, bfi, what: str, reps: int,
+                  plain_reps: int = 1) -> dict:
+    """viterbi_decode on ``t`` (its outputs ``ordered``, ``bfi`` already
+    checked): the call (under no synchronisation once), the launch alone,
+    the plain version and the bound; with --parent the earlier kernel's
+    outputs equal and its launch in turns with this one, and its call."""
+    import torch
+    from tetraear_tpu_torch.voice import viterbi
+    b = t.shape[0]
+    no_sync(what, lambda: viterbi.decode(t))
+    launch = viterbi_launch(t, ordered.clone(), bfi.clone(), what)
+    r = {"blocks": b, "max_abs_err": 0.0, "tol": 0.0,
+         "ms": event_ms(lambda: viterbi.decode(t), reps),
+         "launch_ms": event_ms(launch, max(reps, 50), queued=True),
+         "plain_ms": event_ms(lambda: viterbi.decode_plain(t), plain_reps),
+         "library_ms": None,
+         **bound(nbytes(t, ordered, bfi), 0.0,
+                 issue=V1_OPS_PER_BLOCK * b)}
+    if "viterbi.cu" in PARENT and DEV != "cpu":
+        o, f, p_launch, p_call = parent_viterbi(t, what)
+        if not (torch.equal(o, ordered) and torch.equal(f, bfi)):
+            fail(f"{what}: the earlier kernel differs")
+        r.update(turns(p_launch, launch, max(reps, 50)),
+                 parent_call_ms=event_ms(p_call, reps))
+    return r
+
+
+def v1_turns_text(r: dict) -> str:
+    return (f"; earlier launch {r['parent_ms'][0]:.4f}, "
+            f"{r['parent_ms'][1]:.4f} (this {r['this_ms'][0]:.4f}, "
+            f"{r['this_ms'][1]:.4f}) in turns, its call "
+            f"{r['parent_call_ms']:.4f}" if "parent_ms" in r else "")
+
+
 def phase_viterbi(seed: int, reps: int) -> dict:
     """viterbi_decode against its plain version at B = 8192 and 81920
     (bit-equal), the first 256 blocks also against the C++ decoder;
-    kernel, plain and bound times.  Returns {B: result}."""
+    call, launch alone, plain and bound times (with --parent the earlier
+    kernel's in turns).  Returns {B: result}."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.voice import viterbi
@@ -2231,44 +2653,106 @@ def phase_viterbi(seed: int, reps: int) -> dict:
                 and np.array_equal(bfi[:sub].cpu().numpy(), cbfi)):
             fail(f"viterbi_decode B={b}: differs from the C++ decoder on "
                  f"the first {sub} blocks")
-        r = {"max_abs_err": 0.0, "tol": 0.0, "blocks": b,
-             "bad_frames": int(bfi.sum().item()),
-             "ms": event_ms(lambda: viterbi.decode(t), reps),
-             "plain_ms": event_ms(lambda: viterbi.decode_plain(t), 1),
-             "library_ms": None,
-             **bound(nbytes(t, ordered, bfi), 0.0,
-                     issue=V1_OPS_PER_BLOCK * b)}
+        r = viterbi_times(t, ordered, bfi, f"viterbi_decode B={b}", reps)
+        r["bad_frames"] = int(bfi.sum().item())
         res[b] = r
         say(f"kernel viterbi_decode B={b}: ordered bits and BFI bit-equal "
             f"to the plain version, the first {sub} blocks equal to the "
-            f"C++ decoder ({r['bad_frames']} bad frames); "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"C++ decoder ({r['bad_frames']} bad frames), no "
+            f"synchronisation; call {r['ms']:.4f} ms, launch alone "
+            f"{r['launch_ms']:.4f}, plain {r['plain_ms']:.4f} ms, library "
             f"call none, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes, {r['ops']:.3e} integer instructions at "
-            f"{ISSUE_PER_CLK_SM:.0f} a clock an SM)")
+            f"{ISSUE_PER_CLK_SM:.0f} a clock an SM){v1_turns_text(r)}")
         del t, ordered, bfi
     sync()
     return res
 
 
-def viterbi_entry(vit: dict, voice_fleet: dict) -> dict:
-    """The kernels line's viterbi_decode entry: B = 8192 as its numbers,
-    B = 81920 and the batch sizes of the voice fleet's launches beside
-    them."""
+def viterbi_floor(seed: int, reps: int) -> dict:
+    """viterbi_decode's latency floor: the launch alone at B = 1 (one
+    half-warp's chain) and B = 2 (one warp's pair), bit-equal to the
+    plain version; with --parent the earlier kernel's in turns.  Returns
+    {B: result}."""
+    import torch
+    from tetraear_tpu_torch.voice import viterbi
+    floor = {}
+    for b in (1, 2):
+        t = torch.from_numpy(viterbi_inputs(b, seed)).to(DEV)
+        ordered, bfi = viterbi.decode(t)
+        check_viterbi(t, f"B={b}", ordered, bfi)
+        floor[b] = viterbi_times(t, ordered, bfi,
+                                 f"viterbi_decode floor B={b}", reps)
+        say(f"kernel viterbi_decode floor B={b}: bit-equal; launch alone "
+            f"{floor[b]['launch_ms']:.5f} ms, call {floor[b]['ms']:.4f}"
+            f"{v1_turns_text(floor[b])}")
+    sync()
+    return floor
+
+
+# batch sizes of the corner launches: one block, one warp, odd B, the
+# CTA sizes' edges (cta_warps at 132 SMs)
+V1_CORNERS = (1, 2, 3, 17, 171, 528, 529, 1057)
+
+
+def check_viterbi_corners(seed: int) -> int:
+    """viterbi_decode at the corner batch sizes (V1_CORNERS) bit-equal to
+    its plain version; returns the number of launches checked."""
+    import torch
+    for b in V1_CORNERS:
+        t = torch.from_numpy(viterbi_inputs(b, seed + b)).to(DEV)
+        check_viterbi(t, f"corner B={b}")
+    sync()
+    say(f"kernel viterbi_decode corners: B in {V1_CORNERS} bit-equal to the "
+        f"plain version")
+    return len(V1_CORNERS)
+
+
+def phase_viterbi_path(calls: list, reps: int) -> list:
+    """viterbi_decode on the input of each launch a voice stream made
+    (record_viterbi_calls; its outputs already held against the plain
+    version): the call, the launch alone, the plain version, the bound;
+    with --parent the earlier kernel in turns.  Returns one result a
+    launch."""
+    if not calls:
+        fail("viterbi path: the voice stream made no launch")
+    res = []
+    for soft, ordered, bfi in calls:
+        what = f"viterbi_decode voice fleet launch B={len(soft)}"
+        check_viterbi(soft, what, ordered, bfi)
+        r = viterbi_times(soft, ordered, bfi, what, reps)
+        res.append(r)
+        say(f"kernel {what}: bit-equal, no synchronisation; call "
+            f"{r['ms']:.4f} ms, launch alone {r['launch_ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f} ms, library call none, bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']}{v1_turns_text(r)}")
+    sync()
+    return res
+
+
+def viterbi_entry(vit: dict, floor: dict, path: list,
+                  voice_fleet: dict) -> dict:
+    """The kernels line's viterbi_decode entry: the largest launch of the
+    voice fleet (the main path's shape) as its numbers; every launch of
+    the path, the floor (B = 1, 2) and B = 8192 / 81920 beside them."""
     src, replaces = KERNELS["viterbi_decode"]
-    items = sorted(vit.items())
-    (b1, r1), (b2, r2) = items[0], items[-1]
+    r = max(path, key=lambda p: p["blocks"])
+    keys = ("ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "ops")
     return {"name": "viterbi_decode", "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": voice_fleet["launches"]["viterbi_decode"],
-            "max_abs_err": 0.0, "ms": r1["ms"], "plain_ms": r1["plain_ms"],
-            "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
-            "library_ms": None, "bound_bytes": r1["bytes"],
-            "bound_ops": r1["ops"],
-            "shape": f"B={b1} voice blocks of 432 soft bits",
-            f"ms_b{b2}": r2["ms"], f"plain_ms_b{b2}": r2["plain_ms"],
-            f"bound_ms_b{b2}": r2["bound_ms"],
-            f"bound_by_b{b2}": r2["bound_by"],
+            "max_abs_err": 0.0, "ms": r["ms"], "launch_ms": r["launch_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "floor_ms": floor[1]["launch_ms"],
+            "floor_ms_b2": floor[2]["launch_ms"],
+            "bound_bytes": r["bytes"], "bound_ops": r["ops"],
+            "shape": f"B={r['blocks']} voice blocks of 432 soft bits (the "
+                     f"largest launch of the voice fleet)",
+            "path_launches": [{k: p[k] for k in ("blocks", *keys)}
+                              for p in path],
+            **{f"b{b}": {k: v[k] for k in keys} for b, v in vit.items()},
             "path_batches": voice_fleet["result"]["viterbi_batches"]}
 
 
@@ -3163,9 +3647,8 @@ def phase_voice_fleet(c: int, nfft: int | None, n_blocks: int,
         f"host synthesis {r['host_synthesis_ms_per_block']:.2f} ms/block; "
         f"launches { {k: v for k, v in counts.items() if v} }; capture "
         f"made in {made:.1f} s")
-    del calls
     return {"result": r, "launches": counts, "setup": setup, "log": log,
-            "stats": stats}
+            "stats": stats, "calls": calls}
 
 
 def same_voice(a, b) -> bool:
@@ -3551,32 +4034,89 @@ def main_profile(card: str, out_dir: Path) -> int:
     return 4
 
 
-def main_extract_parent(parent: Path) -> int:
-    """The extraction kernels in turns with an earlier band_extract.cu:
-    random starts at the C=1024 and C=10240 geometries, then the real
-    grids; one JSON line a case."""
-    global PARENT_EXTRACT
+def record_stream_tea() -> list:
+    """The deferred searches of the fused stream's three blocks at C=1024
+    (the capture of phase_stream, TEA carriers on), recorded by
+    record_tea_calls without the stream's checks."""
+    setup = fleet_setup(FS_FLEET, 1024, None, 3, seed=11, encrypted=True)
+    calls = []
+    undo = record_tea_calls(calls)
+    pipe = stream_pipeline(setup, 0, lambda f: None,
+                           **dict(FUSED_CFG, auto_decrypt=True))
+    try:
+        bl = setup["block_len"]
+        for i in range(len(setup["iq"]) // bl):
+            pipe.process_block(setup["iq"][i * bl:(i + 1) * bl])
+    finally:
+        pipe.close()
+        undo()
+    return calls
+
+
+def record_voice_viterbi() -> list:
+    """The viterbi_decode launches of the voice fleet's unsplit run (the
+    capture of phase_voice_fleet), recorded by record_viterbi_calls."""
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    from tetraear_tpu_torch.golden import fleet_capture
+    offsets = grid(1024)
+    bl = CarrierBankDemod(fs=FS_FLEET, freqs_hz=offsets,
+                          frontend="fft").block_len
+    iq, _ = fleet_capture(FS_FLEET, offsets, [], 4 * bl, seed=21,
+                          voice=voice_carriers(1024))
+    calls = []
+    voice_stream_run({"fs": FS_FLEET, "offsets": offsets, "iq": iq,
+                      "block_len": bl}, False, 0, calls)
+    return calls
+
+
+def main_parent(parent: Path) -> int:
+    """The kernels whose earlier source ``parent`` holds (PARENT_SOURCES),
+    in turns with this checkout's on the same inputs; one JSON line a
+    case.  band_extract.cu: random starts at the C=1024 and C=10240
+    geometries, then the real grids.  tea.cu: the fixed sizes in all
+    three modes, the deferred searches of the fused stream (its three
+    blocks recorded) with the round trip, the floor.  viterbi.cu: B =
+    8192 and 81920, the floor (B = 1, 2), the voice fleet's launches (its
+    unsplit run recorded)."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.dsp.channelizer import choose_decim, choose_nfft
-    PARENT_EXTRACT = build_parent_extract(parent)
-    rng = np.random.default_rng(1)
-    for fs, c in ((FS_FLEET, 1024), (FS_BENCH, 10240)):
-        nfft_ = choose_nfft(fs)
-        nb = nfft_ // choose_decim(fs)
-        planes = torch.from_numpy(rng.standard_normal(
-            (2, (nfft_ + nb) // 128, 128)).astype(np.float32)).to(DEV)
-        for _, what, src, plan, starts, gather in extract_random(
-                c, nfft_, nb, planes, rng):
-            r = extract_result(what, src, plan, starts, gather, 10,
-                               100 if c <= 1024 else 10)
-            say(json.dumps({"case": what, **r}))
-        del planes, src
-        torch.cuda.empty_cache()
-    for name, rs in phase_extract_grids(seed=7).items():
-        for r in rs:
-            say(json.dumps({"case": f"{name} grid", **r}))
-    say("extract-parent mode: no result line")
+    PARENT.update(build_parent(parent))
+    if not PARENT:
+        fail(f"--parent {parent}: none of {PARENT_SOURCES} there")
+    if "band_extract.cu" in PARENT:
+        rng = np.random.default_rng(1)
+        for fs, c in ((FS_FLEET, 1024), (FS_BENCH, 10240)):
+            nfft_ = choose_nfft(fs)
+            nb = nfft_ // choose_decim(fs)
+            planes = torch.from_numpy(rng.standard_normal(
+                (2, (nfft_ + nb) // 128, 128)).astype(np.float32)).to(DEV)
+            for _, what, src, plan, starts, gather in extract_random(
+                    c, nfft_, nb, planes, rng):
+                r = extract_result(what, src, plan, starts, gather, 10,
+                                   100 if c <= 1024 else 10)
+                say(json.dumps({"case": what, **r}))
+            del planes, src
+            torch.cuda.empty_cache()
+        for name, rs in phase_extract_grids(seed=7).items():
+            for r in rs:
+                say(json.dumps({"case": f"{name} grid", **r}))
+    if "tea.cu" in PARENT:
+        tea = phase_tea(seed=8, reps=5, int_rates=phase_int_rate())
+        for size, r in tea.items():
+            say(json.dumps({"case": f"tea {size}", **r}))
+        for r in phase_tea_path(record_stream_tea(), reps=5):
+            say(json.dumps({"case": "tea path", **r}))
+        say(json.dumps({"case": "tea floor", **tea_floor(reps=5)}))
+    if "viterbi.cu" in PARENT:
+        vit = phase_viterbi(seed=9, reps=5)
+        for b, r in vit.items():
+            say(json.dumps({"case": f"viterbi B={b}", **r}))
+        for b, r in viterbi_floor(seed=9, reps=5).items():
+            say(json.dumps({"case": f"viterbi floor B={b}", **r}))
+        for r in phase_viterbi_path(record_voice_viterbi(), reps=5):
+            say(json.dumps({"case": "viterbi path", **r}))
+    say("parent mode: no result line")
     return 1
 
 
@@ -3646,9 +4186,8 @@ def main(argv: list) -> int:
         rest = argv[argv.index("--profile") + 1:]
         return main_profile(card, ROOT / (rest[0] if rest
                                           else "profile_out"))
-    if "--extract-parent" in argv:
-        return main_extract_parent(
-            Path(argv[argv.index("--extract-parent") + 1]).resolve())
+    if "--parent" in argv:
+        return main_parent(Path(argv[argv.index("--parent") + 1]).resolve())
 
     # sizes: the real ones, or a tiny stand-in for each in the rehearsal
     # (C=8, nfft overrides; the fleet stand-in stays fused-eligible)
@@ -3665,7 +4204,10 @@ def main(argv: list) -> int:
     phase_kernels_extra(seed=6)
     grids = phase_extract_grids(seed=7)
     tea = phase_tea(seed=8, reps=5, int_rates=int_rates)
+    check_tea_corners(seed=12)
     vit = phase_viterbi(seed=9, reps=5)
+    vit_floor = viterbi_floor(seed=9, reps=5)
+    check_viterbi_corners(seed=13)
     sp = phase_speech(seed=10, reps=5)
     say(f"[{time.time() - t_start:.0f} s] kernels checked")
     phase_decode_small()
@@ -3687,7 +4229,11 @@ def main(argv: list) -> int:
         "classic-workers", c_fleet, setup, afc_frames_w,
         ("frame_scan_even", "band_synth_y"), workers=2, frontend="fft",
         carrier_afc=True, auto_decrypt=True)
+    if not REHEARSE and counts_stream["tea_search"] != len(tea_calls):
+        fail(f"stream fused: {counts_stream['tea_search']} tea_search "
+             f"launches for {len(tea_calls)} deferred searches")
     tea_path = phase_tea_path(tea_calls, reps=5)
+    tea_fl = tea_floor(reps=5)
     pb_fleet = phase_process_block_timing("fleet", setup, fleet_fs, c_fleet,
                                           2, 0, None)
     pb_fleet_w = {w: phase_process_block_timing(
@@ -3699,7 +4245,8 @@ def main(argv: list) -> int:
     t_voice = time.time()
     voice_fleet = phase_voice_fleet(c_fleet, nfft_fleet, 4, seed=21)
     voice_dev = phase_voice_fleet_device(voice_fleet)
-    for key in ("setup", "log", "stats"):
+    vit_path = phase_viterbi_path(voice_fleet["calls"], reps=5)
+    for key in ("setup", "log", "stats", "calls"):
         del voice_fleet[key]
     counts_vrtl = phase_voice_rtl()
     say(f"[{time.time() - t_start:.0f} s] voice phases done in "
@@ -3758,10 +4305,11 @@ def main(argv: list) -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         if name == "tea_search":
-            kernels.append(tea_entry(tea, tea_path, counts_stream))
+            kernels.append(tea_entry(tea, tea_path, counts_stream, tea_fl))
             continue
         if name == "viterbi_decode":
-            kernels.append(viterbi_entry(vit, voice_fleet))
+            kernels.append(viterbi_entry(vit, vit_floor, vit_path,
+                                         voice_fleet))
             continue
         if name == "acelp_decode":
             kernels.append(acelp_entry(sp, voice_dev))

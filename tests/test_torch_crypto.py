@@ -182,31 +182,198 @@ def test_batch_decrypt_frames_matches_jax_and_host():
 
 def test_frame_layer_defers_and_searches_once_per_block(monkeypatch):
     """The frame layer sets defer_decrypt on its decoders, and a block's
-    pending frames go to ONE key search per cipher family on the layer's
-    device (tests/unit/test_batch_decrypt.py
-    test_pipeline_uses_device_decrypt); a lone frame stays on the host."""
+    pending frames go to ONE key search covering both cipher families on
+    the layer's device (tests/unit/test_batch_decrypt.py
+    test_pipeline_uses_device_decrypt; the JAX package makes one search a
+    family); a lone frame stays on the host."""
     calls = []
-    orig = cbatch.tea_decrypt_batch
+    orig = cbatch.tea_decrypt_families
 
-    def counting(payloads, key_list, algorithm="TEA1", device=None):
-        calls.append((np.atleast_2d(payloads).shape[0], algorithm, device))
-        return orig(payloads, key_list, algorithm, device=device)
+    def counting(payloads, tea1_keys, tea2_keys, device=None):
+        calls.append((np.atleast_2d(payloads).shape[0], len(tea1_keys),
+                      len(tea2_keys), device))
+        return orig(payloads, tea1_keys, tea2_keys, device=device)
 
-    monkeypatch.setattr(cbatch, "tea_decrypt_batch", counting)
+    monkeypatch.setattr(cbatch, "tea_decrypt_families", counting)
     layer = BatchedFrameDecoder(2, auto_decrypt=True, device=CPU)
     assert all(d.defer_decrypt for d in layer.decoders)
     frames = [dict(enc_frame(b"\x82EMERGENCY AT DOCK 5 EMERGENCY",
                              "0123456789ABCDEF0123", "TEA1", i),
                    decryption_pending=True, position=0) for i in range(3)]
     out = layer._attach_and_decrypt(frames, None)
-    assert [c[:2] for c in calls] == [(3, "TEA1"), (3, "TEA2")]
-    assert all(c[2] == CPU for c in calls)
+    assert len(calls) == 1
+    n_pay, k1, k2, device = calls[0]
+    assert n_pay == 3 and k1 > 0 and k2 > 0 and device == CPU
     assert all(f["decrypted"] for f in out)
     calls.clear()
     lone = [dict(enc_frame(b"\x82ONE FRAME ALONE", "0123456789ABCDEF0123",
                            "TEA1", 0), decryption_pending=True, position=0)]
     layer._attach_and_decrypt(lone, None)
     assert calls == [] and lone[0]["decrypted"]
+
+
+@pytest.mark.parametrize("alg2", ["TEA2", "TEA3", "TEA4"])
+@pytest.mark.parametrize("length", [8, 32, 64, 72])
+def test_fused_families_equal_single_family_calls_and_jax(alg2, length):
+    """Both families in one launch (its plain version here): TEA1's keys
+    first, then the other family's, each block equal to the
+    single-family call and to the JAX tea_decrypt_batch; W = L / 8 is 1,
+    4, 8 or 9 (not only a power of two)."""
+    payloads, keys1 = rand_case("TEA1", 3, 5, length, seed=length)
+    _, keys2 = rand_case(alg2, 4, 5, length, seed=length + 1)
+    got = cbatch.tea_decrypt_families(payloads, keys1, keys2, device=CPU)
+    assert got.shape == (7, 5, length) and got.dtype == np.uint8
+    one = [cbatch.tea_decrypt_batch(payloads, keys1, "TEA1", device=CPU),
+           cbatch.tea_decrypt_batch(payloads, keys2, alg2, device=CPU)]
+    np.testing.assert_array_equal(got, np.concatenate(one))
+    ref = [jax_cbatch.tea_decrypt_batch(payloads, keys1, "TEA1"),
+           jax_cbatch.tea_decrypt_batch(payloads, keys2, alg2)]
+    np.testing.assert_array_equal(got, np.concatenate(ref))
+    assert got[3, 4].tobytes() == TEADecryptor(keys2[0], alg2).decrypt(
+        payloads[4].tobytes())
+    # one family pending: the other has no keys
+    np.testing.assert_array_equal(
+        cbatch.tea_decrypt_families(payloads, [], keys2, device=CPU), ref[1])
+    np.testing.assert_array_equal(
+        cbatch.tea_decrypt_families(payloads, keys1, [], device=CPU), ref[0])
+
+
+def test_families_upload_once_and_reject_no_keys():
+    """The payload words and both families' key words are views of one
+    uploaded buffer; a launch needs at least one key."""
+    payloads, keys1 = rand_case("TEA1", 2, 3, 16, seed=21)
+    v0, v1, kw1, kw2 = cbatch._upload(
+        [*cbatch._payload_to_words(payloads),
+         cbatch._keys_to_words_tea1(cbatch._key_matrix(keys1, 10)),
+         cbatch._keys_to_words_tea2(cbatch._key_matrix([], 16))], CPU)
+    base = v0.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base
+               for t in (v1, kw1, kw2))
+    assert kw1.shape == (2, 5) and kw2.shape == (0, 4)
+    with pytest.raises(ValueError, match="0 TEA1 and 0 TEA2 keys"):
+        cbatch.tea_decrypt_fused(v0, v1, kw1[:0], kw2)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 8, 9, 12, 13, 1022, 1066,
+                               1072, 4096, 65536, 65537, 2**31 - 1])
+def test_magic_division_is_exact(d):
+    """csrc/tea.cu divides an item index by B and W with host-computed
+    magic numbers: exact for every 32-bit numerator (edges and random)."""
+    m, s = cbatch._magic(d)
+    assert 0 <= m < 2**32 and 0 <= s <= 32
+    rng = np.random.default_rng(d)
+    q = rng.integers(0, (2**32 - 1) // d + 1, 2048, dtype=np.uint64)
+    edges = np.concatenate([q * np.uint64(d) + np.uint64(e)
+                            for e in (0, 1, d - 1)])
+    n = np.concatenate([np.arange(0, 1024, dtype=np.uint64),
+                        edges[edges < 2**32],
+                        rng.integers(0, 2**32, 4096, dtype=np.uint64),
+                        np.array([2**32 - 1, 2**32 - 2, 2**31],
+                                 np.uint64)])
+    got = (n + ((n * np.uint64(m)) >> np.uint64(32))) >> np.uint64(s)
+    np.testing.assert_array_equal(got, n // np.uint64(d))
+
+
+def _replay(mode: int, k1: int, k2: int, b: int, w: int) -> dict:
+    """csrc/tea.cu's thread -> (family, key, payload, block, output item)
+    map in numpy, from the launch's TeaGrid: every thread of the grid,
+    its CTA's family branch, the magic divisions, the output index."""
+    g = cbatch.tea_grid(mode, k1, k2, b, w)
+    cta = np.arange(g.ctas1 + g.ctas2, dtype=np.uint64)
+    t = (cta[:, None] * cbatch.TEA_CTA
+         + np.arange(cbatch.TEA_CTA, dtype=np.uint64)).reshape(-1)
+    cta_of = np.repeat(cta, cbatch.TEA_CTA)
+    fam1 = cta_of < g.ctas1
+    i = np.where(fam1, t, t - np.uint64(g.ctas1 * cbatch.TEA_CTA))
+    live = i < np.where(fam1, g.n1, g.n2)
+
+    def div(n, m, s):
+        return (n + ((n * np.uint64(m)) >> np.uint64(32))) >> np.uint64(s)
+    if mode == 1:
+        k = div(i, g.pay_m, g.pay_s)
+        pay, blk = i - k * np.uint64(b), np.zeros_like(i)
+    else:
+        pair = div(i, g.words_m, g.words_s)
+        blk = i - pair * np.uint64(w)
+        k = pair if mode == 2 else div(pair, g.pay_m, g.pay_s)
+        pay = pair if mode == 2 else pair - k * np.uint64(b)
+    dst = np.where(fam1, 0, g.n1) + i
+    return {"grid": g, "cta": cta_of[live], "fam1": fam1[live],
+            "k": k[live].astype(np.int64), "pay": pay[live].astype(np.int64),
+            "blk": blk[live].astype(np.int64),
+            "dst": dst[live].astype(np.int64), "thread": t[live]}
+
+
+REPLAY_CASES = [(0, 13, 12, 37, 8), (0, 1, 0, 1, 1), (0, 0, 1, 1, 9),
+                (0, 3, 0, 5, 9), (0, 0, 5, 33, 3), (0, 2, 2, 7, 1),
+                (1, 13, 12, 37, 8), (1, 1, 0, 1, 1), (1, 0, 7, 300, 9),
+                (2, 37, 0, 37, 8), (2, 0, 5, 5, 9), (2, 1, 0, 1, 1)]
+
+
+@pytest.mark.parametrize("case", REPLAY_CASES)
+def test_kernel_thread_map_writes_each_output_once(case):
+    """Every output item (an 8-byte block, or a pair's score) is written
+    by exactly one thread, each CTA's threads are of one family, the
+    item's (key, payload, block) is the one its output position names,
+    and a warp's live lanes store consecutive items (contiguous bytes)."""
+    mode, k1, k2, b, w = case
+    r = _replay(mode, k1, k2, b, w)
+    per_key = w if mode == 2 else b * (1 if mode == 1 else w)
+    n_out = (k1 + k2) * per_key if mode != 2 else b * w
+    np.testing.assert_array_equal(np.sort(r["dst"]), np.arange(n_out))
+    for c in np.unique(r["cta"]):
+        assert len(set(r["fam1"][r["cta"] == c])) == 1
+    k_global = np.where(r["fam1"], r["k"], k1 + r["k"])
+    if mode == 0:
+        want = (k_global * b + r["pay"]) * w + r["blk"]
+    elif mode == 1:
+        want = k_global * b + r["pay"]
+    else:
+        want = r["pay"] * w + r["blk"]
+        assert (r["k"] == r["pay"]).all()
+    np.testing.assert_array_equal(r["dst"], want)
+    assert (r["k"] < np.where(r["fam1"], k1, k2)).all()
+    assert (r["pay"] < b).all() and (r["blk"] < w).all()
+    warp = (r["thread"] // 32).astype(np.int64)
+    for wp in np.unique(warp):
+        d = r["dst"][warp == wp]
+        np.testing.assert_array_equal(np.diff(d), 1)
+
+
+@pytest.mark.parametrize("case", [c for c in REPLAY_CASES if c[0] != 1])
+def test_kernel_thread_map_rebuilds_the_plaintexts(case):
+    """The replayed map fed through the plain rounds, block by block,
+    rebuilds the plain version's output byte for byte."""
+    mode, k1, k2, b, w = case
+    r = _replay(mode, k1, k2, b, w)
+    rng = np.random.default_rng(sum(case))
+    payloads = rng.integers(0, 256, (b, 8 * w), dtype=np.uint8)
+    kb1 = rng.integers(0, 256, (k1, 10), dtype=np.uint8)
+    kb2 = rng.integers(0, 256, (k2, 16), dtype=np.uint8)
+    v0, v1, kw1, kw2 = cbatch._upload(
+        [*cbatch._payload_to_words(payloads),
+         cbatch._keys_to_words_tea1(kb1), cbatch._keys_to_words_tea2(kb2)],
+        CPU)
+    out = torch.zeros(r["dst"].max() + 1, 8, dtype=torch.uint8)
+    for fam, kw, tea1 in ((True, kw1, True), (False, kw2, False)):
+        sel = r["fam1"] == fam
+        if not sel.any():
+            continue
+        k = torch.from_numpy(r["k"][sel])
+        pay = torch.from_numpy(r["pay"][sel])
+        blk = torch.from_numpy(r["blk"][sel])
+        cols = cbatch._key_cols(kw[k], (-1,))
+        p0, p1 = cbatch._rounds_plain(v0[pay, blk].long() & cbatch._M32,
+                                      v1[pay, blk].long() & cbatch._M32,
+                                      cols, tea1)
+        out[torch.from_numpy(r["dst"][sel])] = cbatch._words_to_bytes(
+            p0[:, None], p1[:, None])
+    if mode == 0:
+        want = cbatch.tea_decrypt_fused(v0, v1, kw1, kw2)
+    else:
+        kw = kw1 if k1 else kw2
+        want = cbatch.tea_decrypt_pairs(v0, v1, kw, bool(k1))
+    assert torch.equal(out.reshape(want.shape), want)
 
 
 def test_scoring_feeds_the_scoring_decoders_parsers():

@@ -251,6 +251,105 @@ def test_viterbi_decode_matches_plain_and_cpp_on_card(smoke):
     assert all(r["bound_ms"] > 0 for r in res.values())
 
 
+@pytest.mark.cuda
+def test_tea_search_corners_on_card(smoke):
+    """tea_search at K = 1, B = 1, W 1 and 9, odd B, one family pending
+    and the live path's largest shape (K 13 + 12, B 1072, W 8): the fused
+    decrypt and each family's search and pairs modes bit-equal to the
+    plain versions (check_tea_corners exits on any difference)."""
+    assert smoke.check_tea_corners(seed=12) >= len(smoke.TEA_CORNERS)
+
+
+@pytest.mark.cuda
+def test_tea_fused_search_at_the_path_shape_on_card(smoke):
+    """A deferred search of the live path's shape (13 TEA1 + 12 TEA2 keys
+    x 1072 payloads of 64 bytes) in one launch: bit-equal to the plain
+    version and TEADecryptor, no synchronisation in the call
+    (phase_tea_path exits otherwise); the floor's launch at K = B = W = 1."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    pay = rng.integers(0, 256, (1072, 64), dtype=np.uint8)
+    keys1 = [bytes(rng.integers(0, 256, 10, dtype=np.uint8))
+             for _ in range(13)]
+    keys2 = [bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+             for _ in range(12)]
+    res = smoke.phase_tea_path([(pay, keys1, keys2)], reps=2)
+    assert res[0]["items"] == 25 * 1072 * 8 and res[0]["bound_ms"] > 0
+    assert smoke.tea_floor(reps=2)["launch_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_frame_layer_makes_one_tea_launch_a_block_on_card(smoke):
+    """A block with TEA1 and TEA2 keys pending goes to the card in one
+    tea_search launch, with the same frames as the CPU layer."""
+    import copy
+    import numpy as np
+    from tetraear_tpu_torch.crypto.tea import TEADecryptor
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
+
+    def frame(i):
+        key = bytes.fromhex("0123456789ABCDEF0123")
+        return {"number": i, "carrier": i % 2,
+                "bits": np.zeros(510, np.uint8), "encrypted": True,
+                "encryption_algorithm": "TEA1", "key_id": "0",
+                "decryption_pending": True, "position": 0,
+                "mac_pdu": {"data": TEADecryptor(key, "TEA1").encrypt(
+                    b"\x82EMERGENCY AT DOCK 5 EMERGENCY\x00\x00")}}
+    frames = [frame(i) for i in range(3)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        layer = BatchedFrameDecoder(2, auto_decrypt=True, device=device)
+        ck.reset_launches()
+        out[device] = layer._attach_and_decrypt(copy.deepcopy(frames), None)
+        if device == "cuda":
+            assert ck.launches["tea_search"] == 1
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a["decrypted"] and a.get("sds_message") == b.get(
+            "sds_message") and a.get("key_used") == b.get("key_used")
+
+
+@pytest.mark.cuda
+def test_viterbi_corners_on_card(smoke):
+    """viterbi_decode at B 1, 2, 3, 17, 171 and the CTA sizes' edges (528,
+    529, 1057) bit-equal to its plain version."""
+    assert smoke.check_viterbi_corners(seed=13) == len(smoke.V1_CORNERS)
+
+
+@pytest.mark.cuda
+def test_viterbi_path_shapes_and_floor_on_card(smoke):
+    """The voice fleet's batch sizes (162, 171, 180): bit-equal, no
+    synchronisation in the call, the launch alone timed; the floor's
+    launches at B = 1 and 2."""
+    from tetraear_tpu_torch.voice import viterbi
+    calls = []
+    for b in (162, 171, 180):
+        t = torch.from_numpy(smoke.viterbi_inputs(b, seed=b)).to("cuda")
+        calls.append((t, *viterbi.decode(t)))
+    res = smoke.phase_viterbi_path(calls, reps=2)
+    assert [r["blocks"] for r in res] == [162, 171, 180]
+    floor = smoke.viterbi_floor(seed=9, reps=2)
+    assert sorted(floor) == [1, 2]
+
+
+@pytest.mark.cuda
+def test_viterbi_decode_keeps_its_table_on_the_card(smoke):
+    """The table goes up once a device; a call then neither copies from
+    the host nor synchronises."""
+    from tetraear_tpu_torch.voice import viterbi
+    t = torch.from_numpy(smoke.viterbi_inputs(5, seed=5)).to("cuda")
+    viterbi.decode(t)
+    table = viterbi.table_on(t.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ordered, bfi = viterbi.decode(t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert viterbi.table_on(t.device) is table
+    o_p, b_p = viterbi.decode_plain(t)
+    assert torch.equal(ordered, o_p) and torch.equal(bfi, b_p)
+
+
 # -- acelp_decode (V2): the wrapper's checks run anywhere, the kernel on
 # the card ---------------------------------------------------------------
 

@@ -181,24 +181,26 @@ def test_process_block_fused_matches_jax_checkpoint(fused, monkeypatch):
     the JAX Pipeline's checkpoint (leaves into its own state, extras and
     aux across) and its blocks 1-3 equal JAX's continuation; the TEA1
     carrier's text comes back decrypted, through one key search a block
-    (each block holds several encrypted frames)."""
+    covering both cipher families (each block holds several encrypted
+    frames)."""
     from tetraear_tpu_torch.crypto import batch as cbatch
     searches = []
-    orig = cbatch.tea_decrypt_batch
+    orig = cbatch.tea_decrypt_families
 
-    def counting(payloads, key_list, algorithm="TEA1", device=None):
-        searches.append((len(payloads), len(key_list), algorithm, device))
-        return orig(payloads, key_list, algorithm, device=device)
+    def counting(payloads, tea1_keys, tea2_keys, device=None):
+        searches.append((len(payloads), len(tea1_keys), len(tea2_keys),
+                         device))
+        return orig(payloads, tea1_keys, tea2_keys, device=device)
 
-    monkeypatch.setattr(cbatch, "tea_decrypt_batch", counting)
+    monkeypatch.setattr(cbatch, "tea_decrypt_families", counting)
     blocks, want, ckpt = fused
     pipe = Pipeline(PipelineConfig(device=CPU, **FUSED_CFG))
     assert pipe.runner.fused is not None
     pipe.load_checkpoint(ckpt)
     got, _, _ = run_port(FUSED_CFG, blocks[1:], pipe=pipe)
     assert got == want[1:]
-    assert len(searches) >= 3 and all(n >= 2 for n, *_ in searches)
-    assert {a for *_, a, _ in searches} == {"TEA1", "TEA2"}
+    assert len(searches) == len(blocks[1:]), searches
+    assert all(n >= 2 and k1 and k2 for n, k1, k2, _ in searches)
     assert all(str(d) == CPU for *_, d in searches)
     dec = [f for b in got for f in b if f["carrier"] == 1 and f["decrypted"]]
     assert len(dec) >= 8

@@ -3,9 +3,12 @@
 The reference tries ~40 keys per encrypted frame in a Python loop
 (tetraear/core/decoder.py:683-783).  Here the whole keys x payloads
 product is one launch of the hand-written ``tea_search`` kernel
-(dsp/csrc/tea.cu): one thread per (key, payload) pair, the decrypt rounds
-and the plaintext score in registers, so a fleet bruteforces every
-encrypted frame of a block without a Python loop over keys.
+(dsp/csrc/tea.cu): a thread an 8-byte block (decrypt) or a (key,
+payload) pair (search, the score in registers), so a fleet bruteforces
+every encrypted frame of a block without a Python loop over keys.  The
+live path's deferred decryption (``batch_decrypt_frames``) covers both
+cipher families with one upload, one launch and one fetch a block
+(``tea_decrypt_families``).
 
 Semantics are identical to ``crypto.tea`` (itself bit-exact vs the
 reference ciphers) and to the JAX package's functions of the same names.
@@ -18,14 +21,17 @@ runs the kernels' plain versions).  The JAX functions' ``mesh=`` /
 multi-GPU slice (ROADMAP.md, modules still to port, item 5), so these
 functions take no such argument.
 
-Kernel wrappers (``tea_decrypt``, ``tea_search``, ``tea_decrypt_pairs``)
-follow ``dsp/cuda_kernels``' dispatch rule: CPU tensors run the plain
-version (int64 tensors, every addition, subtraction and left shift
-masked to 32 bits), CUDA tensors launch the kernel or raise.  Each
+Kernel wrappers (``tea_decrypt_fused``, ``tea_decrypt``, ``tea_search``,
+``tea_decrypt_pairs``) follow ``dsp/cuda_kernels``' dispatch rule: CPU
+tensors run the plain version (int64 tensors, every addition,
+subtraction and left shift masked to 32 bits), CUDA tensors launch the
+kernel or raise.  Each
 launch adds one to ``cuda_kernels.launches["tea_search"]``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -152,60 +158,151 @@ def tea_decrypt_pairs_plain(v0, v1, key_words, tea1: bool) -> torch.Tensor:
     return _words_to_bytes(p0, p1)
 
 
-def _tea_launch(mode: int, v0, v1, key_words, tea1: bool, pairs: bool):
+def tea_decrypt_fused_plain(v0, v1, kw1, kw2) -> torch.Tensor:
+    """Plain version of tea_decrypt_fused: each family's plain version,
+    TEA1's keys first."""
+    parts = [tea_decrypt_plain(v0, v1, kw, tea1)
+             for kw, tea1 in ((kw1, True), (kw2, False)) if kw.shape[0]]
+    return torch.cat(parts, dim=0)
+
+
+TEA_CTA = 256                      # threads a CTA of csrc/tea.cu
+
+
+def _magic(d: int) -> tuple:
+    """(m, s) with n // d == (n + ((n * m) >> 32)) >> s for every
+    0 <= n < 2^32 (the round-up method: m + 2^32 = ceil(2^(32+s) / d),
+    s = ceil(log2 d)); csrc/tea.cu's fastdiv."""
+    s = (d - 1).bit_length()
+    return -(-(1 << (32 + s)) // d) - (1 << 32), s
+
+
+class TeaGrid(NamedTuple):
+    """The launch of csrc/tea.cu: TEA1's n1 items in ``ctas1`` CTAs, then
+    TEA2's n2 in ``ctas2``; an item is an 8-byte block (modes 0, 2) or a
+    (key, payload) pair (mode 1), item i of TEA2 writes output item
+    n1 + i, and (pay_m, pay_s), (words_m, words_s) divide by B and W."""
+    ctas1: int
+    ctas2: int
+    n1: int
+    n2: int
+    n_pay: int
+    n_words: int
+    pay_m: int
+    pay_s: int
+    words_m: int
+    words_s: int
+
+
+def tea_grid(mode: int, k1: int, k2: int, n_pay: int,
+             n_words: int) -> TeaGrid:
+    """The grid of a launch with k1 TEA1 and k2 TEA2 keys (in mode 2 the
+    one family's key count is n_pay) over n_pay payloads of n_words
+    blocks."""
+    per_key = n_words if mode == 2 else n_pay * (1 if mode == 1 else n_words)
+    n1, n2 = k1 * per_key, k2 * per_key
+    if n1 + n2 >= 1 << 31:
+        raise ValueError(f"tea_search: {n1 + n2} items in one launch, "
+                         "more than 2^31 - 1")
+    return TeaGrid(-(-n1 // TEA_CTA), -(-n2 // TEA_CTA), n1, n2, n_pay,
+                   n_words, *_magic(n_pay), *_magic(n_words))
+
+
+def _tea_launch(mode: int, v0, v1, kw1, kw2, names=("kw1", "kw2")):
+    """Check the arguments; on CUDA tensors launch csrc/tea.cu once and
+    return its output, on CPU tensors return None (the plain version)."""
     b = v0.shape[0] if v0.dim() == 2 else -1
     w = v0.shape[1] if v0.dim() == 2 else -1
-    n_kw = 5 if tea1 else 4
-    k = key_words.shape[0] if key_words.dim() == 2 else -1
     ck._check(v0, "v0", (b, w), torch.int32)
     ck._check(v1, "v1", (b, w), torch.int32)
-    ck._check(key_words, "key_words", (b if pairs else k, n_kw), torch.int32)
-    if w < 1 or b < 1 or k < 1:
-        raise ValueError(f"tea_search: {k} keys, {b} payloads of {w} "
-                         "blocks")
-    if ck._route(v0, v1, key_words) == "cpu":
+    k = [0, 0]
+    for f, (kw, n_kw, name) in enumerate(((kw1, 5, names[0]),
+                                          (kw2, 4, names[1]))):
+        if kw is not None:
+            k[f] = kw.shape[0] if kw.dim() == 2 else -1
+            ck._check(kw, name, (b if mode == 2 else k[f], n_kw),
+                      torch.int32)
+    if w < 1 or b < 1 or k[0] + k[1] < 1 or (mode == 2 and all(k)):
+        raise ValueError(f"tea_search: {k[0]} TEA1 and {k[1]} TEA2 keys, "
+                         f"{b} payloads of {w} blocks")
+    grid = tea_grid(mode, k[0], k[1], b, w)
+    tensors = [t for t in (v0, v1, kw1, kw2) if t is not None]
+    if ck._route(*tensors) == "cpu":
         return None
     dev = v0.device
     lib = ck.build()
     if mode == 1:
-        out = torch.empty((k, b), dtype=torch.int32, device=dev)
-    elif pairs:
+        out = torch.empty((k[0] + k[1], b), dtype=torch.int32, device=dev)
+    elif mode == 2:
         out = torch.empty((b, 8 * w), dtype=torch.uint8, device=dev)
     else:
-        out = torch.empty((k, b, 8 * w), dtype=torch.uint8, device=dev)
-    ck._launch("tea_search", dev, lib.tt_tea, mode, int(tea1), ck._ptr(v0),
-               ck._ptr(v1), ck._ptr(key_words), n_kw, k, b, w, ck._ptr(out))
+        out = torch.empty((k[0] + k[1], b, 8 * w), dtype=torch.uint8,
+                          device=dev)
+    ck._launch("tea_search", dev, lib.tt_tea,
+               *kernel_args(mode, v0, v1, kw1, kw2, out, grid))
     return out
+
+
+def kernel_args(mode: int, v0, v1, kw1, kw2, out, grid=None) -> tuple:
+    """The C entry's arguments but the stream (device pointers, a family
+    without keys NULL, and the grid's integers): what ``_tea_launch``
+    launches and ``chip_smoke.py`` times alone."""
+    if grid is None:
+        k = [0 if kw is None else kw.shape[0] for kw in (kw1, kw2)]
+        grid = tea_grid(mode, *k, *v0.shape)
+    return (mode, ck._ptr(v0), ck._ptr(v1),
+            None if kw1 is None else ck._ptr(kw1),
+            None if kw2 is None else ck._ptr(kw2), *grid, ck._ptr(out))
+
+
+def _one_family(key_words, tea1: bool) -> tuple:
+    return (key_words, None) if tea1 else (None, key_words)
+
+
+def tea_decrypt_fused(v0: torch.Tensor, v1: torch.Tensor,
+                      kw1: torch.Tensor, kw2: torch.Tensor) -> torch.Tensor:
+    """Both cipher families in one launch: (B, W) int32 word pairs, (K1, 5)
+    TEA1 and (K2, 4) TEA2/3/4 int32 key words (either may have no rows)
+    -> (K1 + K2, B, 8W) uint8 plaintexts, TEA1's keys first, each
+    bit-exact vs crypto.tea.TEADecryptor.decrypt (ECB).
+
+    Replaces the reference's ``_decrypt_impl`` (XLA rounds over a
+    (K, B, W) uint32 grid), once a family.  Bound: integer operations
+    (384 / 320 instructions a TEA1 / TEA2 block).  Design: csrc/tea.cu,
+    a thread an 8-byte block, a warp's W-block pairs on adjacent lanes
+    (256 contiguous bytes a store), TEA1's blocks padded to whole CTAs and
+    TEA2's after them."""
+    out = _tea_launch(0, v0, v1, kw1, kw2)
+    return tea_decrypt_fused_plain(v0, v1, kw1, kw2) if out is None else out
 
 
 def tea_decrypt(v0: torch.Tensor, v1: torch.Tensor, key_words: torch.Tensor,
                 tea1: bool) -> torch.Tensor:
     """Every key against every payload: (B, W) int32 word pairs (uint32
     bit patterns) and (K, 5 or 4) int32 key words -> (K, B, 8W) uint8
-    plaintexts, each bit-exact vs crypto.tea.TEADecryptor.decrypt (ECB).
-
-    Replaces the reference's ``_decrypt_impl`` (XLA rounds over a
-    (K, B, W) uint32 grid).  Bound: integer operations (about 450 a
-    block).  Design: csrc/tea.cu, one thread a pair, rounds unrolled with
-    their constants folded, bytes stored as 8-byte words."""
-    out = _tea_launch(0, v0, v1, key_words, tea1, pairs=False)
+    plaintexts; tea_decrypt_fused for one family."""
+    out = _tea_launch(0, v0, v1, *_one_family(key_words, tea1),
+                      names=("key_words",) * 2)
     return tea_decrypt_plain(v0, v1, key_words, tea1) if out is None else out
 
 
 def tea_search(v0: torch.Tensor, v1: torch.Tensor, key_words: torch.Tensor,
                tea1: bool) -> torch.Tensor:
     """Every key against every payload -> (K, B) int32 plaintext scores
-    (the reference's ``_score_bytes``), the plaintext kept in registers.
-    Same kernel and bound as tea_decrypt; 4 bytes out a pair."""
-    out = _tea_launch(1, v0, v1, key_words, tea1, pairs=False)
+    (the reference's ``_score_bytes``), the plaintext kept in registers:
+    the same kernel's search mode, a thread a (key, payload) pair; 4 bytes
+    out a pair."""
+    out = _tea_launch(1, v0, v1, *_one_family(key_words, tea1),
+                      names=("key_words",) * 2)
     return tea_search_plain(v0, v1, key_words, tea1) if out is None else out
 
 
 def tea_decrypt_pairs(v0: torch.Tensor, v1: torch.Tensor,
                       key_words: torch.Tensor, tea1: bool) -> torch.Tensor:
     """Payload b decrypted with key b: (B, W) word pairs and (B, 5 or 4)
-    key words -> (B, 8W) uint8.  Same kernel as tea_decrypt."""
-    out = _tea_launch(2, v0, v1, key_words, tea1, pairs=True)
+    key words -> (B, 8W) uint8.  The same kernel, a thread a block."""
+    out = _tea_launch(2, v0, v1, *_one_family(key_words, tea1),
+                      names=("key_words",) * 2)
     return (tea_decrypt_pairs_plain(v0, v1, key_words, tea1) if out is None
             else out)
 
@@ -214,21 +311,39 @@ def tea_decrypt_pairs(v0: torch.Tensor, v1: torch.Tensor,
 # public functions (the JAX package's)
 # ---------------------------------------------------------------------------
 
-def _device_words(payloads, keys, algorithm: str, device) -> tuple:
-    """(v0, v1, key words, tea1, B) as int32 tensors on the device."""
-    payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
+def _key_matrix(keys, length: int) -> np.ndarray:
+    """A list of key byte strings or a (K, length) uint8 array -> (K,
+    length) uint8."""
     if isinstance(keys, (list, tuple)):
+        if not keys:
+            return np.zeros((0, length), np.uint8)
         keys = np.stack([np.frombuffer(bytes(k), np.uint8) for k in keys])
+    return np.asarray(keys, np.uint8).reshape(-1, length)
+
+
+def _upload(arrays: list, device) -> list:
+    """uint32 arrays -> int32 tensors on the device, from ONE host-to-device
+    copy of their concatenation (each a contiguous view of it)."""
+    flat = np.concatenate([np.asarray(a, np.uint32).reshape(-1)
+                           for a in arrays]).view(np.int32)
+    buf = torch.from_numpy(flat).to(resolve(device))
+    out, at = [], 0
+    for a in arrays:
+        n = int(np.prod(a.shape))
+        out.append(buf[at:at + n].view(a.shape))
+        at += n
+    return out
+
+
+def _device_words(payloads, keys, algorithm: str, device) -> tuple:
+    """(v0, v1, key words, tea1, B) as int32 tensors on the device (one
+    upload)."""
+    payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
     tea1 = algorithm.upper() == "TEA1"
-    kw = _keys_to_words_tea1(keys) if tea1 else _keys_to_words_tea2(keys)
-    v0, v1 = _payload_to_words(payloads)
-    dev = resolve(device)
-
-    def t(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, np.uint32).view(np.int32)).to(dev)
-
-    return t(v0), t(v1), t(kw), tea1, payloads.shape[0]
+    kw = (_keys_to_words_tea1(_key_matrix(keys, 10)) if tea1
+          else _keys_to_words_tea2(_key_matrix(keys, 16)))
+    v0, v1, kw = _upload([*_payload_to_words(payloads), kw], device)
+    return v0, v1, kw, tea1, payloads.shape[0]
 
 
 def tea_decrypt_batch(payloads, keys, algorithm: str = "TEA1",
@@ -243,9 +358,35 @@ def tea_decrypt_batch(payloads, keys, algorithm: str = "TEA1",
     return tea_decrypt(v0, v1, kw, tea1).cpu().numpy()
 
 
+def tea_decrypt_families(payloads, tea1_keys, tea2_keys,
+                         device=None) -> np.ndarray:
+    """Decrypt every payload with every TEA1 key and every TEA2/3/4 key in
+    one device round trip: one upload (payload and both families' key
+    words), one launch (tea_decrypt_fused), one fetch (into pinned host
+    memory).
+
+    payloads: (B, L) uint8 (L % 8 == 0); tea1_keys: 10-byte keys,
+    tea2_keys: 16-byte keys (lists or arrays; either may be empty, not
+    both).  Returns (K1 + K2, B, L) uint8, TEA1's keys first.
+    """
+    payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
+    v0, v1, kw1, kw2 = _upload(
+        [*_payload_to_words(payloads),
+         _keys_to_words_tea1(_key_matrix(tea1_keys, 10)),
+         _keys_to_words_tea2(_key_matrix(tea2_keys, 16))], device)
+    out = tea_decrypt_fused(v0, v1, kw1, kw2)
+    if out.device.type == "cpu":
+        return out.numpy()
+    # the fetch through a pinned buffer (the caching host allocator keeps
+    # it across calls): a direct copy, not staged through pageable memory
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out)
+    return host.numpy()
+
+
 def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
     """Finish deferred decryption for a block's frames with ONE device
-    keys x payloads search per cipher family.
+    keys x payloads search covering both cipher families.
 
     Each frame's key plan and selection loop are EXACTLY the host
     _decrypt_frame path (frame.decoder._build_key_plan /
@@ -293,11 +434,12 @@ def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
     for bi, (_, _, (payload, _)) in enumerate(pending):
         payload_mat[bi, :len(payload)] = np.frombuffer(payload, np.uint8)
 
-    plains = {}
-    for fam in ("TEA1", "TEA2"):
-        if fam_keys[fam]:
-            plains[fam] = tea_decrypt_batch(payload_mat, fam_keys[fam],
-                                            fam, device=device)
+    # one search for both families, TEA1's keys first
+    plains = None
+    if fam_keys["TEA1"] or fam_keys["TEA2"]:
+        plains = tea_decrypt_families(payload_mat, fam_keys["TEA1"],
+                                      fam_keys["TEA2"], device=device)
+    first = {"TEA1": 0, "TEA2": len(fam_keys["TEA1"])}
 
     for bi, (f, dec, (payload, keys_to_try)) in enumerate(pending):
 
@@ -309,7 +451,8 @@ def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
             if ki is None:             # invalid combo: host semantics
                 from tetraear_tpu_torch.crypto.tea import TEADecryptor
                 return TEADecryptor(key, alg).decrypt(_payload)
-            return plains[fam][ki, _bi, :len(_payload)].tobytes()
+            return plains[first[fam] + ki, _bi,
+                          :len(_payload)].tobytes()
 
         dec._select_decrypt(f, payload, keys_to_try, plaintext_at)
         dec._post_decrypt_sds(f)

@@ -168,8 +168,8 @@ def build() -> ctypes.CDLL:
     lib.tt_ops_probe.argtypes = [ci, vp, vp, vp, ci, ci, vp]
     lib.tt_iir_recursion.argtypes = [vp] * 4 + [ci] * 2 + [vp]
     lib.tt_int_rate.argtypes = [ci, ci, ctypes.c_uint, vp, ci, vp]
-    lib.tt_tea.argtypes = [ci, ci] + [vp] * 3 + [ci] * 4 + [vp, vp]
-    lib.tt_viterbi.argtypes = [vp] * 3 + [ci] + [vp] * 4
+    lib.tt_tea.argtypes = [ci] + [vp] * 4 + [ctypes.c_uint] * 10 + [vp, vp]
+    lib.tt_viterbi.argtypes = [vp] * 4 + [ci] * 2 + [vp]
     lib.tt_acelp.argtypes = [vp] * 3 + [ci] * 2 + [vp] * 11
     lib.tt_synth_chain.argtypes = [vp, vp, ci] + [vp] * 4
     for fn in (lib.tt_fft2p, lib.tt_fft2p_pass1, lib.tt_band_synth,

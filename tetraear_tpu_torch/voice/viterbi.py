@@ -17,9 +17,10 @@ against the C++ decoder (voice/csrc/channel.cpp).  Per block:
 
 ``decode`` is the kernel wrapper: on CUDA tensors it launches the
 hand-written ``viterbi_decode`` kernel (dsp/csrc/viterbi.cu, one
-half-warp a block, built with the other kernels by dsp.cuda_kernels, one
-count in ``cuda_kernels.launches["viterbi_decode"]`` a launch), on CPU
-tensors it runs ``decode_plain``, the same steps in plain PyTorch.
+half-warp a block, its table uploaded once a device, built with the
+other kernels by dsp.cuda_kernels, one count in
+``cuda_kernels.launches["viterbi_decode"]`` a launch), on CPU tensors it
+runs ``decode_plain``, the same steps in plain PyTorch.
 ``channel_decode_batch`` is the host entry of the JAX module.
 """
 
@@ -71,16 +72,64 @@ _CRC_M = T.crc_matrix()
 # predecessors of post-state ns: s0 = 2*(ns & 7), s1 = s0 + 1
 _PRED0 = np.array([2 * (ns & 7) for ns in range(_STATES)], np.int32)
 
-# the kernel's tables (its constant memory): each step's three positions
-# in the deinterleaved row (SOFT_BITS, a zero pad, where punctured), the
-# signs as int8, and each CRC check's taps as three 32-bit words
-_K_POS = np.where(_STEP_PRES > 0, T.N0 + _STEP_IDX,
-                  SOFT_BITS).astype(np.int16).reshape(-1)
-_K_SIGN = _SIGNS.astype(np.int8).reshape(-1)
+# the kernel's table (csrc/viterbi.cu), one int32 tensor uploaded once a
+# device: for each step its three positions in the deinterleaved row
+# (SOFT_BITS, a zero pad, where punctured) as pos0 | pos1 << 10 | pos2 <<
+# 20; for each state ns its branch sum for parity p as one of the step's
+# four sums q[idx] = r0 +- r1 +- r2 (bit 1 of idx: r1 subtracted, bit 0:
+# r2) times +-1, packed idx0 | neg0 << 2 | idx1 << 3 | neg1 << 5; then
+# each CRC check's taps over ordered[214:282] as three 32-bit words
+_K_POS = np.where(_STEP_PRES > 0, T.N0 + _STEP_IDX, SOFT_BITS)
+_K_STEP = (_K_POS[:, 0] | _K_POS[:, 1] << 10 | _K_POS[:, 2] << 20)
+_K_SUM_IDX = (((_SIGNS[:, :, 1] != _SIGNS[:, :, 0]) << 1)
+              | (_SIGNS[:, :, 2] != _SIGNS[:, :, 0]))         # (16, 2)
+_K_SUM_NEG = _SIGNS[:, :, 0] < 0
+_K_LANE = (_K_SUM_IDX[:, 0] | _K_SUM_NEG[:, 0] << 2
+           | _K_SUM_IDX[:, 1] << 3 | _K_SUM_NEG[:, 1] << 5)
 _K_CRC = np.zeros((8, 3), np.uint32)
 for _k, _q in zip(*np.nonzero(_CRC_M)):
     _K_CRC[_k, _q >> 5] |= np.uint32(1 << (_q & 31))
-_K_CRC = _K_CRC.reshape(-1)
+_K_TABLE = np.concatenate([_K_STEP.astype(np.int32),
+                           _K_LANE.astype(np.int32),
+                           _K_CRC.reshape(-1).view(np.int32)])
+_TABLE_ON: dict = {}
+
+
+def table_on(dev: torch.device) -> torch.Tensor:
+    """The kernel's table on ``dev``, uploaded on the first call there."""
+    key = str(dev)
+    if key not in _TABLE_ON:
+        _TABLE_ON[key] = torch.from_numpy(_K_TABLE).to(dev)
+    return _TABLE_ON[key]
+
+
+def cta_warps(b: int, n_sms: int) -> int:
+    """Warps a CTA of the kernel for ``b`` blocks (two a warp): the
+    fewest of 1, 2, 4 that leave at most two CTAs an SM, so that a small
+    batch spreads over the SMs; 4 beyond that."""
+    warps = -(-b // 2)
+    return next((w for w in (1, 2) if -(-warps // w) <= 2 * n_sms), 4)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    key = str(dev)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[key]
+
+
+def kernel_args(soft: torch.Tensor, ordered: torch.Tensor,
+                bfi: torch.Tensor) -> tuple:
+    """The C entry's arguments but the stream: device pointers and
+    integers only (the table is on the card), what ``decode`` launches
+    and ``chip_smoke.py`` times alone."""
+    dev = soft.device
+    b = soft.shape[0]
+    return (ck._ptr(soft), ck._ptr(table_on(dev)), ck._ptr(ordered),
+            ck._ptr(bfi), b, cta_warps(b, _sm_count(dev)))
 
 
 def decode_plain(soft: torch.Tensor) -> tuple:
@@ -129,23 +178,26 @@ def decode(soft: torch.Tensor) -> tuple:
     uint8: class 0 ++ the 184 decoded bits, bfi (B,) bool).
 
     Replaces the reference's ``channel_decode_batch_traced`` (an XLA
-    lax.scan).  Bound: integer instructions (about 100 a trellis step).
-    Design: dsp/csrc/viterbi.cu, one half-warp a block, lanes as states,
-    predecessors by shuffle, decisions by ballot into shared memory."""
+    lax.scan).  Bound: integer instructions at large B (about 150 a
+    trellis step), the latency of one block's chain at the live path's
+    B.  Design: dsp/csrc/viterbi.cu, one half-warp a block, lanes as
+    states, each step's four branch sums computed ahead of the forward
+    pass, predecessors by shuffle, decisions by ballot into shared memory,
+    the traceback as a history register, the table resident on the card,
+    a CTA of 1-4 warps by B."""
     b = soft.shape[0] if soft.dim() == 2 else -1
     ck._check(soft, "soft", (b, SOFT_BITS), torch.int32)
     if ck._route(soft) == "cpu":
         return decode_plain(soft)
     dev = soft.device
     ordered = torch.empty((b, ORDERED_BITS), dtype=torch.uint8, device=dev)
-    bfi = torch.empty((b,), dtype=torch.uint8, device=dev)
+    bfi = torch.empty((b,), dtype=torch.bool, device=dev)
     if b:
-        lib = ck.build()
-        ck._launch("viterbi_decode", dev, lib.tt_viterbi, ck._ptr(soft),
-                   ck._ptr(ordered), ck._ptr(bfi), b,
-                   _K_POS.ctypes.data, _K_SIGN.ctypes.data,
-                   _K_CRC.ctypes.data)
-    return ordered, bfi.bool()
+        if soft.data_ptr() % 16:
+            raise ValueError("soft: storage must be 16-byte aligned")
+        ck._launch("viterbi_decode", dev, ck.build().tt_viterbi,
+                   *kernel_args(soft, ordered, bfi))
+    return ordered, bfi
 
 
 def _unbuild(ordered: np.ndarray) -> np.ndarray:
