@@ -88,6 +88,28 @@ Pipeline) fused and classic with two frame workers, each held against
 run_offline on the same frame layer; and process_block's time split by
 part at C=1024 and C=10240, in process and with 2 and 4 frame workers.
 
+Sharding and the scanners (one card: each mesh is a virtual one, its
+entries naming the card and its shards run one after the other, so its
+wall time is no scaling figure): sharded conv, the multi-device dry
+run's conv rung (runtime/multichip.py) on a 2 x 2 mesh (and over all
+cards when there are several), unique frames equal to the transmitted
+slots; sharded fft, ShardedFFTDemod at C=1024 on the fleet grid
+(36.864 MHz, band_extract) and the fleet-aligned grid (40.96 MHz,
+band_extract_rows), 7 carriers modulated: unique frames equal the slots
+on the (1, 2), (2, 2) and (4, 2) meshes with equal sync_hits, the
+largest soft difference across layouts printed, then the (2, 2) step
+timed (ms a mesh step and a shard's front and back, host time, launches,
+redundant work); at C=10240 (294.912 MHz, noise) the carrier layouts
+checked and the step timed; at 2.304 MHz, C=8, the card equal to the
+CPU; nccl one rank, init_distributed with a group of one (its own
+process) and the sharded step's all-reduce on NCCL, equal to the run
+without a group; voice mesh, DeviceSpeechPool(mesh=) at 1/2/4 over 256
+slots, bit-equal to the unsharded pool across calls and a restored
+checkpoint, acelp_decode launched once a shard with active rows; crypto
+mesh, the dry run's crypto rung on a mesh of 4 (tea_search a shard);
+scan wideband, WidebandScanner on a 2.4 Msps capture on the card, equal
+to the CPU run, band_synth_y launched, the scan timed.
+
 Every decode phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a kernel of that path that
 was never launched fails the run.
@@ -100,11 +122,14 @@ device, and a directory without the tetraear_tpu_torch package.
 Two other modes print no result line and exit non-zero:
 
     python3 chip_smoke.py --profile [DIR]   # torch.profiler breakdown
-                                       # of the chained steps, written
+                                       # of the chained steps and the
+                                       # sharded FFT step, written
                                        # to DIR (default profile_out/)
     python3 chip_smoke.py --rehearse   # the phases' control flow on the
                                        # CPU at a tiny size (plain
                                        # versions; nothing is built)
+    python3 chip_smoke.py --nccl-one-rank  # the nccl one rank phase's
+                                       # own process (one JSON line)
     python3 chip_smoke.py --parent DIR # each redesigned kernel whose
                                        # earlier source DIR holds
                                        # (band_extract.cu, tea.cu,
@@ -3906,6 +3931,481 @@ def phase_voice_rtl() -> dict:
     return {"host": counts, "device": runs["device"][2]}
 
 
+# ---------------------------------------------------------------------------
+# multi-device sharding and the scanners
+# ---------------------------------------------------------------------------
+#
+# This machine has one card, so a mesh here is a virtual one: several
+# entries naming the card, whose shards run one after the other on it
+# (their wall time is no scaling figure).  With more cards the conv rung
+# runs over all of them too.
+
+SHARD_ACTIVE = (5, 170, 341, 512, 683, 854, 1019)
+# soft decisions nearer their boundary than this may flip between layouts
+# (a batched library product may round otherwise at another batch size);
+# the others are "firm"
+SOFT_MARGIN = 1e-4
+# float32 band power of the scanner, card against CPU
+SCAN_POWER_TOL_DB = 1e-3
+
+
+def virtual(n: int) -> list:
+    """n mesh entries naming this run's device."""
+    return [DEV] * n
+
+
+def phase_sharded_conv() -> tuple:
+    """The multi-device dry run's conv rung (ShardedDemod) on a virtual
+    2 x 2 mesh of the card, and over all cards when there are several:
+    unique frames equal the transmitted slots; its scaling table over a
+    virtual mesh of 8 (sync_hits equal over the carrier layouts).  The
+    conv path is plain torch (NCO, resample stages, RRC, timing), no
+    hand kernel."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime import multichip
+    t0 = time.time()
+    ck.reset_launches()
+    res = {"virtual_2x2": multichip.conv_rung(virtual(4), 2, 2, say),
+           "scaling": multichip.scaling_table(virtual(8), 8, say)}
+    n_cards = torch.cuda.device_count() if DEV == "cuda" else 0
+    if n_cards > 1:
+        res["cards"] = multichip.conv_rung(
+            [f"cuda:{i}" for i in range(n_cards)],
+            *multichip._layout(n_cards), say)
+    counts = dict(ck.launches)
+    say(f"sharded conv: {time.time() - t0:.1f} s")
+    return res, counts
+
+
+def _margin_equal(a: dict, b: dict) -> tuple:
+    """(valid equal, hard decisions that differ where both layouts' soft
+    values lie at least SOFT_MARGIN from a boundary, such symbols, the
+    largest soft difference on the valid symbols)."""
+    import numpy as np
+    v = a["valid"].astype(bool)
+    firm = (v & (np.abs(a["soft"]).min(axis=-1) >= SOFT_MARGIN)
+            & (np.abs(b["soft"]).min(axis=-1) >= SOFT_MARGIN))
+    soft = float(np.abs(a["soft"][v] - b["soft"][v]).max()) if v.any() \
+        else 0.0
+    return (bool(np.array_equal(a["valid"], b["valid"])),
+            int((a["hard"][firm] != b["hard"][firm]).sum()),
+            int(firm.sum()), soft)
+
+
+def sharded_timing(name: str, sd, seg: dict, reps: int) -> dict:
+    """ms of one mesh step on resident segments (CUDA events), the host
+    time of the step call (its return, before the card finishes) and its
+    wall time with a synchronise; one shard's front and back phases alone
+    (shard (0, 1): a left neighbour); hand-kernel launches a step; the
+    redundant-work ratio (each time shard's back half also runs its
+    back_halo, the front transforms what the stream would)."""
+    import torch
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    n_shards = sd.mesh.size
+    step_ms = event_ms(lambda: sd.step(seg), reps)
+    sync()
+    host, wall = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sd.step(seg)
+        host.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    ch = sd.chan
+    x = seg[(0, 1)]
+    left = torch.zeros((ch.overlap, 2), dtype=torch.float32,
+                       device=x.device)
+    front_ms = event_ms(lambda: sd._front(0, 1, x, left), reps)
+    y = sd._front(0, 1, x, left)
+    left_y = torch.zeros((sd.c_local, sd.back_halo, 2),
+                         dtype=torch.float32, device=x.device)
+    back_ms = event_ms(lambda: sd._back(1, y, left_y), reps)
+    ck.reset_launches()
+    sd.step(seg)
+    sync()
+    launches = {k: v for k, v in ck.launches.items() if v}
+    extract = sharded_extract(name, sd)
+    r = {"mesh": dict(sd.mesh.shape), "carriers": sd.n_carriers,
+         "fs": sd.fs, "seg_len": sd.seg_len,
+         "signal_ms_per_step": sd.seg_len * sd.n_time / sd.fs * 1e3,
+         "ms_per_step": step_ms, "ms_per_shard_step": step_ms / n_shards,
+         "shard_front_ms": front_ms, "shard_back_ms": back_ms,
+         "host_ms_per_step": min(host), "wall_ms_per_step": min(wall),
+         "host_share": min(host) / min(wall),
+         "hand_kernel_launches_per_step": launches,
+         "redundant_work": (ch.n_out + sd.back_halo) / ch.n_out,
+         "extract": extract,
+         "label": ("one card, shards serialised" if DEV == "cuda"
+                   else "CPU rehearsal")}
+    say(f"sharded fft {name} timing ({r['label']}, C={sd.n_carriers}, "
+        f"mesh {sd.mesh.shape}): {step_ms:.3f} ms a mesh step "
+        f"({r['signal_ms_per_step']:.1f} ms of signal), "
+        f"{step_ms / n_shards:.3f} a shard; one shard's front "
+        f"{front_ms:.3f} + back {back_ms:.3f} ms; host {min(host):.2f} of "
+        f"{min(wall):.2f} ms wall; launches a step {launches}; "
+        f"redundant work {r['redundant_work']:.4f}")
+    return r
+
+
+def sharded_extract(name: str, sd) -> dict:
+    """The shard's extraction kernel at its shape (carrier shard 0's plan
+    over a random spectrum), held against its plain version and the
+    single-call gather, timed with its bound (extract_result)."""
+    import numpy as np
+    import torch
+    plan = sd.plans[0]
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(61)
+    starts = torch.from_numpy(plan.starts).to(dev)
+    if plan.form == "rows":
+        src = torch.from_numpy(rng.standard_normal(
+            (2, plan.n_rows, 128)).astype(np.float32)).to(dev)
+        idx = (starts.long()[:, None, None]
+               + torch.arange(plan.span, device=dev)[None, None, :])
+        pl_idx = torch.arange(2, device=dev)[None, :, None]
+
+        def gather():
+            return src[pl_idx, idx]
+    else:
+        src = torch.from_numpy(rng.standard_normal(
+            (plan.n_rows, 2)).astype(np.float32)).to(dev)
+        idx = (starts.long()[:, None]
+               + torch.arange(plan.span, device=dev)[None, :])
+
+        def gather():
+            return src[idx]
+    r = extract_result(f"sharded fft {name} extraction", src, plan, starts,
+                       gather, 5, 50)
+    unit = " rows of 128" if plan.form == "rows" else ""
+    say(f"  {plan.form} extraction of a shard ({len(plan.starts)} bands of "
+        f"{plan.span}{unit}): equal to the plain version; call "
+        f"{r['ms']:.4f} ms, "
+        f"launch {r['launch_ms']:.4f}, gather {r['library_ms']:.4f}, plain "
+        f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f}")
+    return r
+
+
+def phase_sharded_fft(name: str, fs: float, c: int, kernel: str,
+                      seed: int, reps: int) -> tuple:
+    """ShardedFFTDemod at full width on a virtual mesh: the (2, 2) run
+    launches ``kernel`` and its deduped frames on the modulated carriers
+    equal the transmitted slots; the (1, 2), (2, 2) and (4, 2) meshes give
+    the same sync_hits and unique frames (the largest soft difference
+    across them printed); then the (2, 2) step timed."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime import multichip
+    from tetraear_tpu_torch.runtime.sharding import (ShardedFFTDemod,
+                                                     make_mesh)
+    offsets = grid(c)
+    active = list(SHARD_ACTIVE) if c == 1024 else list(range(c))
+    demods = {n_c: ShardedFFTDemod(fs, offsets,
+                                   make_mesh(n_c, 2, virtual(2 * n_c)))
+              for n_c in (1, 2, 4)}
+    d22 = demods[2]
+    form = d22.plans[0].form
+    t0 = time.time()
+    iq, n_slots = multichip.modulated_capture(
+        offsets, 2 * d22.seg_len, fs=fs, seed=seed, active=active)
+    say(f"sharded fft {name}: capture {len(iq)} samples at {fs / 1e6:g} MHz,"
+        f" {len(active)} of {c} carriers modulated ({n_slots} slots), made "
+        f"in {time.time() - t0:.1f} s; {form} extraction "
+        f"(n_band {d22.chan.n_band}, aligned {d22.chan.aligned})")
+    geom = multichip.fft_frame_geometry(d22)
+    runs, counts = {}, None
+    for n_c, sd in demods.items():
+        ck.reset_launches()
+        t0 = time.time()
+        out = sd.run(iq)
+        wall = time.time() - t0
+        if n_c == 2:
+            counts = dict(ck.launches)
+            need_launched(f"sharded fft {name}", counts, (kernel,))
+        uniq = multichip.count_unique_frames(out, c, 2, *geom,
+                                             carriers=active)
+        runs[n_c] = (out, uniq)
+        say(f"  mesh ({n_c}, 2): sync_hits {out['sync_hits']}, unique "
+            f"frames {uniq} of {n_slots} slots, first run {wall:.2f} s")
+        if uniq != n_slots:
+            fail(f"sharded fft {name} ({n_c}, 2): {uniq} unique frames for "
+                 f"{n_slots} transmitted slots")
+    ref = runs[2][0]
+    soft = {}
+    for n_c in (1, 4):
+        out = runs[n_c][0]
+        if out["sync_hits"] != ref["sync_hits"]:
+            fail(f"sharded fft {name}: sync_hits {out['sync_hits']} on "
+                 f"({n_c}, 2) against {ref['sync_hits']} on (2, 2)")
+        same_valid, n_diff, n_firm, soft[n_c] = _margin_equal(out, ref)
+        say(f"  ({n_c}, 2) against (2, 2): valid equal {same_valid}, "
+            f"{n_diff} of {n_firm} firm hard decisions differ, largest "
+            f"soft difference {soft[n_c]:.3g}")
+    r = sharded_timing(name, d22, d22.upload(iq), reps)
+    r.update(unique_frames=runs[2][1], slots=n_slots,
+             sync_hits=ref["sync_hits"], extraction=form,
+             max_soft_diff_across_layouts=max(soft.values()))
+    del runs, demods, iq
+    return r, counts
+
+
+def phase_sharded_fft_big(c: int, fs: float, reps: int) -> tuple:
+    """ShardedFFTDemod at C=10240 on a virtual (2, 2) mesh of noise: the
+    carrier-axis check against (1, 2) (valid, firm decisions, sync_hits
+    printed), and the (2, 2) step timed."""
+    import numpy as np
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime.sharding import (ShardedFFTDemod,
+                                                     make_mesh)
+    offsets = grid(c)
+    d22 = ShardedFFTDemod(fs, offsets, make_mesh(2, 2, virtual(4)))
+    rng = np.random.default_rng(29)
+    n = 2 * d22.seg_len
+    iq = np.empty(n, np.complex64)
+    iq.real = rng.standard_normal(n, dtype=np.float32)
+    iq.imag = rng.standard_normal(n, dtype=np.float32)
+    ck.reset_launches()
+    out = d22.run(iq)
+    counts = dict(ck.launches)
+    kernel = "band_extract_rows" if d22.chan.aligned else "band_extract"
+    need_launched("sharded fft C=10240", counts, (kernel,))
+    seg = d22.upload(iq)
+    r = sharded_timing(f"C={c}", d22, seg, reps)
+    del seg
+    other = ShardedFFTDemod(fs, offsets, make_mesh(1, 2, virtual(2))).run(iq)
+    same_valid, n_diff, n_firm, soft = _margin_equal(other, out)
+    say(f"sharded fft C={c}: (1, 2) against (2, 2): valid equal "
+        f"{same_valid}, {n_diff} of {n_firm} firm hard decisions differ, "
+        f"largest soft difference {soft:.3g}, sync_hits "
+        f"{other['sync_hits']} / {out['sync_hits']} (noise)")
+    # noise: a decision whose differential product is near zero turns on
+    # rounding, so at most one firm decision in 10^5 may differ
+    if not same_valid or n_diff > n_firm * 1e-5:
+        fail(f"sharded fft C={c}: the carrier layouts disagree")
+    r.update(sync_hits=out["sync_hits"], sync_hits_1x2=other["sync_hits"],
+             max_soft_diff_across_layouts=soft, extraction=kernel)
+    return r, counts
+
+
+def phase_sharded_small() -> dict:
+    """At 2.304 MHz, C=8, every carrier modulated: the (2, 2) virtual mesh
+    on the card equals the port's CPU run (valid and sync_hits; hard on
+    the valid symbols beyond a 64-symbol warmup)."""
+    import numpy as np
+    from tetraear_tpu_torch.golden import fleet_capture
+    from tetraear_tpu_torch.runtime.sharding import (ShardedFFTDemod,
+                                                     make_mesh)
+    offsets = grid(8)
+    outs = {}
+    for dev in (DEV, "cpu"):
+        sd = ShardedFFTDemod(FS_SMALL, offsets,
+                             make_mesh(2, 2, [dev] * 4))
+        if not outs:
+            iq = fleet_capture(FS_SMALL, offsets, range(8), 2 * sd.seg_len,
+                               seed=31)
+        outs[dev] = sd.run(iq)
+    a, b = outs[DEV], outs["cpu"]
+    v = b["valid"].astype(bool)
+    v[..., :64] = False
+    if (not np.array_equal(a["valid"], b["valid"])
+            or a["sync_hits"] != b["sync_hits"]
+            or not np.array_equal(a["hard"][v], b["hard"][v])):
+        fail(f"sharded fft small: the card's run differs from the CPU's "
+             f"(hits {a['sync_hits']} / {b['sync_hits']})")
+    say(f"sharded fft small (2.304 MHz, C=8, (2, 2)): equal to the CPU run, "
+        f"sync_hits {a['sync_hits']}")
+    return {"sync_hits": a["sync_hits"]}
+
+
+def nccl_child() -> int:
+    """--nccl-one-rank: the sharded FFT step at the small geometry with
+    and without a one-rank process group (NCCL on the card, gloo in the
+    rehearsal); prints one JSON line.  Run by phase_nccl_one_rank in its
+    own process, so that a stuck collective cannot hold the run."""
+    import socket
+    import numpy as np
+    import torch.distributed as dist
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.golden import fleet_capture
+    from tetraear_tpu_torch.runtime import distributed
+    from tetraear_tpu_torch.runtime.sharding import (ShardedFFTDemod,
+                                                     make_mesh)
+    offsets = grid(8)
+    sd = ShardedFFTDemod(FS_SMALL, offsets, make_mesh(2, 2, virtual(4)))
+    iq = fleet_capture(FS_SMALL, offsets, range(8), 2 * sd.seg_len, seed=31)
+    alone = sd.run(iq)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(TETRAEAR_COORDINATOR=f"127.0.0.1:{port}",
+                      TETRAEAR_NUM_PROCESSES="1", TETRAEAR_PROCESS_ID="0")
+    try:
+        if not distributed.init_distributed(device=DEV):
+            fail("nccl one rank: init_distributed did nothing")
+        backend = dist.get_backend()
+        ck.reset_launches()
+        grouped = sd.run(iq)
+        counts = dict(ck.launches)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    same = all(np.asarray(grouped[k]).tobytes()
+               == np.asarray(alone[k]).tobytes()
+               for k in ("hard", "soft", "valid", "sync_hits"))
+    print(json.dumps({"backend": backend, "equal": same,
+                      "sync_hits": grouped["sync_hits"],
+                      "launches": counts}), flush=True)
+    return 0 if same else 1
+
+
+def phase_nccl_one_rank() -> tuple:
+    """init_distributed with one rank (TETRAEAR_NUM_PROCESSES=1, a free
+    loopback port), the sharded FFT step with its all-reduce on NCCL,
+    equal to the run without torch.distributed; the group destroyed.  In
+    a process of its own, stopped after 300 s."""
+    args = [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-one-rank"]
+    if REHEARSE:
+        args.append("--rehearse")
+    env = dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get(
+        "NCCL_SOCKET_IFNAME", "lo"))
+    proc = subprocess.Popen(args, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    last = log.strip().splitlines()[-1] if log.strip() else ""
+    if proc.returncode != 0 or not last.startswith("{"):
+        fail(f"nccl one rank: exit {proc.returncode}\n{log[-3000:]}")
+    r = json.loads(last)
+    if not r["equal"]:
+        fail(f"nccl one rank: differs from the run without a group: {r}")
+    need_launched("nccl one rank", r["launches"], ("band_extract",))
+    say(f"nccl one rank: {r['backend']} group of 1, sharded fft small "
+        f"equal to the run without torch.distributed (sync_hits "
+        f"{r['sync_hits']}); group destroyed")
+    return r, r["launches"]
+
+
+def phase_voice_mesh(seed: int) -> tuple:
+    """DeviceSpeechPool(mesh=) over 256 slots at virtual sizes 1/2/4, on
+    the voice fleet's largest launch shape (118 carriers x 16 frames):
+    four calls (carriers A, then B on other slots, A again carrying its
+    state, then a checkpoint restored into a fresh sharded pool and B
+    again), PCM bit-equal to the unsharded pool; acelp_decode launches
+    counted per call (one a shard with active rows)."""
+    import numpy as np
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime.sharding import Mesh
+    from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
+    n_items = 8 if REHEARSE else 118
+    fr, valid = speech_inputs(4 * n_items, 16, seed)
+    fr[:, :, 0] |= ~valid                  # a hole as a bad frame
+
+    def items(k, carriers):
+        return [(c, fr[k * n_items + i].astype(np.int16))
+                for i, c in enumerate(carriers)]
+    a, b = list(range(n_items)), list(range(200, 200 + n_items))
+    calls = [items(0, a), items(1, b), items(2, a), items(3, b)]
+    ref = DeviceSpeechPool(slots=256, device=DEV)
+    want = [ref.synthesize(it) for it in calls]
+    res, counts_all = {}, {}
+    for n in (1, 2, 4):
+        mesh = Mesh(virtual(n), ("voice",))
+        pool = DeviceSpeechPool(slots=256, mesh=mesh)
+        per_call = []
+        for i, it in enumerate(calls):
+            if i == 3:
+                leaves, meta = pool.checkpoint_state()
+                pool = DeviceSpeechPool(slots=256, mesh=mesh)
+                pool.restore_state(leaves, meta)
+            ck.reset_launches()
+            got = pool.synthesize(it)
+            sync()
+            per_call.append(ck.launches["acelp_decode"])
+            if any(w.tobytes() != g.tobytes() for w, g in zip(want[i], got)):
+                fail(f"voice mesh: PCM of call {i} at mesh size {n} differs "
+                     f"from the unsharded pool")
+        shards_touched = [len({pool._map[c] // (256 // n) for c, _ in it})
+                          for it in calls]
+        if DEV == "cuda" and per_call != shards_touched:
+            fail(f"voice mesh {n}: acelp_decode launches {per_call}, "
+                 f"shards with active rows {shards_touched}")
+        res[n] = per_call
+        counts_all[n] = sum(per_call)
+    say(f"voice mesh: 256 slots over virtual meshes of 1/2/4, {n_items} "
+        f"carriers x 16 frames a call, 4 calls (state carried, a "
+        f"checkpoint restored into a fresh sharded pool): PCM bit-equal to "
+        f"the unsharded pool; acelp_decode launches a call {res}")
+    return res, {"acelp_decode": sum(counts_all.values())}
+
+
+def phase_crypto_mesh() -> tuple:
+    """The multi-device dry run's crypto rung on a virtual mesh of 4:
+    K 6 x B 1024, every plaintext equal to TEADecryptor's; tea_search
+    launched on every shard."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime import multichip
+    ck.reset_launches()
+    t0 = time.time()
+    multichip.crypto_rung(virtual(4), 4, say)
+    counts = dict(ck.launches)
+    # tea_decrypt_batch: a decrypt launch a shard; tea_key_search: a
+    # search and a pairs launch a shard
+    if DEV == "cuda" and counts["tea_search"] != 4 * 3:
+        fail(f"crypto mesh: {counts['tea_search']} tea_search launches, "
+             f"expected 12")
+    say(f"crypto mesh: {time.time() - t0:.1f} s, tea_search launches "
+        f"{counts['tea_search']}")
+    return {"tea_search": counts["tea_search"]}, counts
+
+
+def phase_scan_wideband() -> tuple:
+    """WidebandScanner on the card over a 2.4 Msps golden capture (4 of
+    its 92 channels modulated, two FFT blocks): every channel's verdict,
+    n_frames, crc_pass_rate and sync_count equal the port's CPU run,
+    power_db within SCAN_POWER_TOL_DB; band_synth_y launched; the scan
+    timed (wall, the frame layer on the host included)."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.golden import fleet_capture
+    from tetraear_tpu_torch.scan.scanner import WidebandScanner
+    ws = WidebandScanner(fs=FS_RTL)
+    hot = [10, 30, 55, 80]
+    iq = fleet_capture(FS_RTL, list(ws.offsets), hot, 480_000, seed=41,
+                       text="SCAN")
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    got = ws.scan(iq, center_freq_hz=392.5e6, device=DEV)
+    first_s = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    need_launched("scan wideband", counts, ("band_synth_y",))
+    t0 = time.perf_counter()
+    ws.scan(iq, center_freq_hz=392.5e6, device=DEV)
+    again_s = time.perf_counter() - t0
+    want = ws.scan(iq, center_freq_hz=392.5e6, device="cpu")
+    keys = ("is_tetra", "n_frames", "crc_pass_rate", "sync_count",
+            "sync_detected", "frames_validated")
+    bad = [(w["offset_hz"], k) for w, g in zip(want, got) for k in keys
+           if w[k] != g[k]]
+    p_err = max(abs(w["power_db"] - g["power_db"])
+                for w, g in zip(want, got))
+    if bad or p_err > SCAN_POWER_TOL_DB:
+        fail(f"scan wideband: card differs from the CPU run at {bad[:5]}, "
+             f"power {p_err:.3g} dB")
+    found = sorted(r["offset_hz"] for r in got if r["is_tetra"])
+    if not {ws.offsets[i] for i in hot} <= set(found):
+        fail(f"scan wideband: found {found}")
+    say(f"scan wideband: {len(iq)} samples ({len(iq) / FS_RTL * 1e3:.0f} ms) "
+        f"at 2.4 MHz, {ws.n_channels} channels; {len(found)} TETRA "
+        f"channels; equal to the CPU run (power within {p_err:.2g} dB); "
+        f"a scan {again_s * 1e3:.1f} ms on {DEV} (first {first_s:.2f} "
+        f"s); launches {({k: v for k, v in counts.items() if v})}")
+    return {"scan_ms": again_s * 1e3, "first_scan_s": first_s,
+            "found": len(found), "max_power_diff_db": p_err,
+            "capture_ms": len(iq) / FS_RTL * 1e3}, counts
+
+
 PROFILE_GROUPS = (
     ("hand-written kernels", ("band_synth_kernel", "frame_scan_kernel",
                               "fused_backhalf_kernel", "fft2p_pass",
@@ -3992,12 +4492,15 @@ def profile_chain(name: str, run, n_blocks: int, out_dir: Path) -> None:
 
 def main_profile(card: str, out_dir: Path) -> int:
     """Where the time goes: the classic chain at fleet-afc and bench-afc
-    beside the fused chain at the same sizes."""
+    beside the fused chain and the sharded FFT step (a virtual (2, 2)
+    mesh of the card, noise) at the same sizes."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.dsp import framescan
     from tetraear_tpu_torch.dsp.backhalf import FusedRx
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    from tetraear_tpu_torch.runtime.sharding import (ShardedFFTDemod,
+                                                     make_mesh)
     out_dir.mkdir(parents=True, exist_ok=True)
     say(f"profile on {card}")
     for name, fs, c in (("fleet-afc", FS_FLEET, 1024),
@@ -4029,6 +4532,21 @@ def main_profile(card: str, out_dir: Path) -> int:
 
         profile_chain(f"fused_C{c}", frun, 5, out_dir)
         del fbox, fused, x, bank
+        torch.cuda.empty_cache()
+
+        # the sharded FFT step on a virtual (2, 2) mesh of the card
+        sd = ShardedFFTDemod(fs, grid(c), make_mesh(2, 2, virtual(4)))
+        noise = np.random.default_rng(3).standard_normal(
+            (2, 2 * sd.seg_len)).astype(np.float32)
+        seg = sd.upload((noise[0] + 1j * noise[1]).astype(np.complex64))
+        del noise
+
+        def srun(n, sd=sd, seg=seg):
+            for _ in range(n):
+                sd.step(seg)
+
+        profile_chain(f"sharded_C{c}", srun, 3, out_dir)
+        del sd, seg
         torch.cuda.empty_cache()
     say("profile mode: no result line")
     return 4
@@ -4188,6 +4706,8 @@ def main(argv: list) -> int:
                                           else "profile_out"))
     if "--parent" in argv:
         return main_parent(Path(argv[argv.index("--parent") + 1]).resolve())
+    if "--nccl-one-rank" in argv:
+        return nccl_child()
 
     # sizes: the real ones, or a tiny stand-in for each in the rehearsal
     # (C=8, nfft overrides; the fleet stand-in stays fused-eligible)
@@ -4285,6 +4805,26 @@ def main(argv: list) -> int:
         for w in (2, 4)}
     say(f"[{time.time() - t_start:.0f} s] chains timed")
 
+    # multi-device sharding (virtual meshes of the card) and the scanners;
+    # the rehearsal's stand-ins: 2.304 and 10.24 MHz at C=8
+    t_shard = time.time()
+    conv_sh, counts_sh_conv = phase_sharded_conv()
+    sh_fleet, counts_sh_fleet = phase_sharded_fft(
+        "fleet", FS_SMALL if REHEARSE else FS_FLEET, c_fleet, "band_extract",
+        seed=51, reps=5)
+    sh_aligned, counts_sh_aligned = phase_sharded_fft(
+        "fleet-aligned", 10.24e6 if REHEARSE else FS_ALIGNED, c_fleet,
+        "band_extract_rows", seed=52, reps=5)
+    sh_big, counts_sh_big = phase_sharded_fft_big(
+        c_bench, FS_SMALL if REHEARSE else FS_BENCH, reps=3)
+    sh_small = phase_sharded_small()
+    nccl, counts_nccl = phase_nccl_one_rank()
+    voice_mesh, counts_vmesh = phase_voice_mesh(seed=53)
+    crypto_mesh, counts_cmesh = phase_crypto_mesh()
+    scan, counts_scan = phase_scan_wideband()
+    say(f"[{time.time() - t_start:.0f} s] sharding and scanner phases done "
+        f"in {time.time() - t_shard:.0f} s")
+
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "tetraear_tpu" or m.startswith("tetraear_tpu."))
@@ -4364,7 +4904,21 @@ def main(argv: list) -> int:
             "voice_fleet": voice_fleet["launches"],
             "voice_fleet_device": voice_dev["launches"],
             "voice_rtl": counts_vrtl["host"],
-            "voice_rtl_device": counts_vrtl["device"]},
+            "voice_rtl_device": counts_vrtl["device"],
+            "sharded_conv": counts_sh_conv,
+            "sharded_fft_fleet": counts_sh_fleet,
+            "sharded_fft_fleet_aligned": counts_sh_aligned,
+            "sharded_fft_c10240": counts_sh_big,
+            "nccl_one_rank": counts_nccl,
+            "voice_mesh": counts_vmesh, "crypto_mesh": counts_cmesh,
+            "scan_wideband": counts_scan},
+        "sharding": {
+            "conv": conv_sh, "fft_fleet": sh_fleet,
+            "fft_fleet_aligned": sh_aligned, "fft_c10240": sh_big,
+            "fft_small_vs_cpu": sh_small, "nccl_one_rank": nccl,
+            "voice_mesh_acelp_launches_per_call": voice_mesh,
+            "crypto_mesh": crypto_mesh},
+        "scan_wideband": scan,
         "process_block": {
             "c1024": pb_fleet, "c10240": pb_bench,
             **{f"c1024_workers{w}": r for w, r in pb_fleet_w.items()},

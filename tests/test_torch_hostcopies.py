@@ -55,6 +55,10 @@ COPIES = {
     "voice/export.py": (),
     "ref/golden.py": (),
     "runtime/sources.py": (),
+    "ref/demod.py": (),
+    "scan/detector.py": (),
+    # the wideband scan's carrier bank runs on the port's device
+    "scan/scanner.py": ("WidebandScanner.scan",),
     # the scan kernel is built at first use on the port's device, the
     # native parser is built before the first parse, and the deferred
     # key search runs on that device
@@ -195,6 +199,13 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
         " or m == 'tetraear_tpu' or m.startswith('tetraear_tpu.'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 30, names\n"
+        "new = {'tetraear_tpu_torch.runtime.sharding',"
+        " 'tetraear_tpu_torch.runtime.distributed',"
+        " 'tetraear_tpu_torch.runtime.multichip',"
+        " 'tetraear_tpu_torch.ref.demod',"
+        " 'tetraear_tpu_torch.scan.detector',"
+        " 'tetraear_tpu_torch.scan.scanner'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "print('CLEAN', len(names))\n")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
            "HOME": str(tmp_path)}
@@ -242,7 +253,9 @@ def test_resolve_cpu_only_when_asked():
                                    "bank_state", "scan_kernel", "convert",
                                    "cli", "listen", "key_search",
                                    "sharded", "voice_decode",
-                                   "speech_pool", "speech_state"])
+                                   "speech_pool", "speech_state",
+                                   "mesh", "multichip", "wideband_scan",
+                                   "scan_cli"])
 def test_entry_points_raise_without_a_card(entry, tmp_path):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
@@ -255,7 +268,10 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
     from tetraear_tpu_torch.dsp.framescan import FrameScanKernel
     from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
     from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
+    from tetraear_tpu_torch.runtime.multichip import dryrun_multichip
+    from tetraear_tpu_torch.runtime.sharding import make_mesh
     from tetraear_tpu_torch.runtime.stream import DecodeRunner
+    from tetraear_tpu_torch.scan.scanner import WidebandScanner
     from tetraear_tpu_torch.voice.speech import init_state
     from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
     from tetraear_tpu_torch.voice.viterbi import channel_decode_batch
@@ -285,6 +301,12 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
             np.zeros((2, 432), np.int32)),
         "speech_pool": lambda: DeviceSpeechPool(slots=4),
         "speech_state": lambda: init_state(4),
+        "mesh": lambda: make_mesh(1, 1),
+        "multichip": lambda: dryrun_multichip(1),
+        "wideband_scan": lambda: WidebandScanner().scan(
+            np.zeros(300_000, np.complex64)),
+        "scan_cli": lambda: main(["scan", "--wideband", "--source",
+                                  "synthetic", "--dwell", "0.1"]),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()

@@ -96,6 +96,11 @@ class PipelineConfig:
                                         # else on exactly on the card)
     device_voice_slots: int = 256       # device decoder states; carriers
                                         # beyond it are LRU-evicted
+    device_voice_mesh: object = None    # runtime.sharding.Mesh: shard the
+                                        # voice slot bank over its first
+                                        # axis's devices (bit-identical
+                                        # PCM at any mesh size; slots
+                                        # must divide by the axis size)
     frame_workers: int = 0              # >0: shard the per-hit frame layer
                                         # over worker processes
                                         # (frame.parallel)
@@ -225,7 +230,8 @@ class Pipeline:
             # on the card this builds the kernels; a failed build raises
             from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
             self._voice_device = DeviceSpeechPool(
-                slots=int(config.device_voice_slots), device=self.device)
+                slots=int(config.device_voice_slots), device=self.device,
+                mesh=config.device_voice_mesh)
         self.runner = DecodeRunner(self.bank, self.batch,
                                    device=self.device,
                                    sparse=config.sparse_hits,

@@ -1,8 +1,10 @@
-"""Command-line interface of the port: ``listen`` and ``decode``.
+"""Command-line interface of the port: ``listen``, ``decode`` and
+``scan``.
 
     python -m tetraear_tpu_torch listen --source synthetic --max-blocks 4
     python -m tetraear_tpu_torch decode --source capture.cs16 -s 2.4 \\
         --offsets 12500,-287500
+    python -m tetraear_tpu_torch scan --wideband --source capture.cs16
 
 ``listen`` streams a source block by block through
 ``Pipeline.run`` / ``process_block`` (the JAX CLI's default command, the
@@ -10,7 +12,11 @@ CLI listener of modern.py:5334-5405); ``decode`` decodes a capture file
 S blocks per device batch (``Pipeline.run_offline``).  Both print each
 frame and a JSON summary, take the receive-chain options and
 ``--frame-workers``, and run on the card unless ``--device cpu`` is
-given.
+given.  ``scan`` looks for TETRA channels: ``--wideband`` scores every
+25 kHz channel of one ``--dwell`` seconds capture with the carrier bank
+(scan.scanner.WidebandScanner, on ``--device``); without it the step
+scanner retunes the source over [start, stop] MHz and analyses each
+channel on the host (FrequencyScanner).
 """
 
 from __future__ import annotations
@@ -196,6 +202,43 @@ def cmd_decode_file(args) -> int:
     return 0
 
 
+def cmd_scan(args) -> int:
+    """Scan for TETRA channels (the JAX CLI's ``scan``)."""
+    import numpy as np
+    if args.wideband:
+        from tetraear_tpu_torch.scan.scanner import WidebandScanner
+        src = _open_source(args)
+        with src:
+            iq = src.read_samples(int(args.sample_rate * 1e6 * args.dwell))
+        ws = WidebandScanner(fs=args.sample_rate * 1e6)
+        results = ws.scan(np.asarray(iq), center_freq_hz=args.frequency * 1e6,
+                          device=args.device)
+        hits = [r for r in results if r["is_tetra"]]
+        print(f"{'MHz':>10}  {'corr':>6}  {'CRC':>5}  {'frames':>6}")
+        for r in sorted(results, key=lambda r: -r["confidence"])[:20]:
+            mark = " *" if r["is_tetra"] else ""
+            print(f"{r['frequency_mhz']:10.4f}  {r['sync_correlation']:6.2f}"
+                  f"  {r['crc_pass_rate']:5.2f}  {r['n_frames']:6d}{mark}")
+        print(f"{len(hits)} active TETRA channel(s)")
+        return 0
+    from tetraear_tpu_torch.scan.scanner import FrequencyScanner
+    src = _open_source(args)
+    if not src.open():
+        print("failed to open source", file=sys.stderr)
+        return 1
+    try:
+        sc = FrequencyScanner(src, sample_rate=args.sample_rate * 1e6)
+        found = sc.scan_range(args.start * 1e6, args.stop * 1e6)
+        sc.found_channels = found
+        sc.print_found_channels()
+        for ch in found:
+            print(f"{ch['frequency_mhz']:.4f} MHz  power="
+                  f"{ch['power_db']:.1f} dB  conf={ch['confidence']:.2f}")
+    finally:
+        src.close()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tetraear_tpu_torch",
@@ -209,6 +252,17 @@ def main(argv=None) -> int:
     p.add_argument("--dispatch-blocks", type=int, default=16,
                    help="blocks per device batch (default 16)")
     p.set_defaults(func=cmd_decode_file)
+    p = sub.add_parser("scan", help="scan for TETRA channels")
+    _add_common(p, "rtlsdr")
+    p.add_argument("start", type=float, nargs="?", default=390.0,
+                   help="start MHz")
+    p.add_argument("stop", type=float, nargs="?", default=395.0,
+                   help="stop MHz")
+    p.add_argument("--wideband", action="store_true",
+                   help="one-shot all-channel scan of a single capture")
+    p.add_argument("--dwell", type=float, default=0.2,
+                   help="seconds of capture a wideband scan reads")
+    p.set_defaults(func=cmd_scan)
     args = parser.parse_args(argv)
     if not getattr(args, "func", None):
         parser.print_help()

@@ -16,10 +16,14 @@ The host helpers (key and payload word packing, the key plan and
 selection loop of ``batch_decrypt_frames``) keep the original's code.
 
 Each public function takes ``device`` (``None``: the card; ``"cpu"``
-runs the kernels' plain versions).  The JAX functions' ``mesh=`` /
-``axis=`` payload sharding is not ported yet: it comes with the
-multi-GPU slice (ROADMAP.md, modules still to port, item 5), so these
-functions take no such argument.
+runs the kernels' plain versions).  ``tea_decrypt_batch`` and
+``tea_key_search`` also take the JAX functions' ``mesh=`` / ``axis=``
+(a runtime/sharding.Mesh): the payload rows are padded with zero rows
+until the axis size divides them (``_pad_rows``), each shard's rows go
+to the device of its mesh entry, where its own ``tea_search`` launch
+runs, and the rows come back in order with the padding cut off.  The
+keys x payloads product has no term across payloads, so the results are
+bit-identical to the unsharded call, with no collective.
 
 Kernel wrappers (``tea_decrypt_fused``, ``tea_decrypt``, ``tea_search``,
 ``tea_decrypt_pairs``) follow ``dsp/cuda_kernels``' dispatch rule: CPU
@@ -311,6 +315,25 @@ def tea_decrypt_pairs(v0: torch.Tensor, v1: torch.Tensor,
 # public functions (the JAX package's)
 # ---------------------------------------------------------------------------
 
+def _pad_rows(v0, v1, mesh, axis: str | None) -> int:
+    """Rows to append so the payload axis divides the mesh size — a
+    fleet's backlog is an arbitrary count.  Zero rows are harmless for
+    ECB; callers slice the results back to the true B."""
+    n_dev = mesh.shape[axis or mesh.axis_names[0]]
+    return (-v0.shape[0]) % n_dev
+
+
+def _payload_shards(payloads: np.ndarray, mesh, axis) -> list:
+    """[(device, rows)]: the zero-padded payload rows cut into one
+    contiguous block for each entry along the mesh axis."""
+    pad = _pad_rows(payloads, payloads, mesh, axis)
+    rows = np.concatenate(
+        [payloads, np.zeros((pad, payloads.shape[1]), np.uint8)])
+    devs = mesh.axis_devices(axis)
+    per = len(rows) // len(devs)
+    return [(d, rows[i * per:(i + 1) * per]) for i, d in enumerate(devs)]
+
+
 def _key_matrix(keys, length: int) -> np.ndarray:
     """A list of key byte strings or a (K, length) uint8 array -> (K,
     length) uint8."""
@@ -347,13 +370,23 @@ def _device_words(payloads, keys, algorithm: str, device) -> tuple:
 
 
 def tea_decrypt_batch(payloads, keys, algorithm: str = "TEA1",
-                      device=None) -> np.ndarray:
+                      device=None, mesh=None,
+                      axis: str | None = None) -> np.ndarray:
     """Decrypt every payload with every key on the device.
 
     payloads: (B, L) uint8 (L % 8 == 0); keys: list/array of key bytes.
+    mesh: optional runtime.sharding.Mesh — shards the payload axis over
+    ``axis`` (default: the mesh's first axis), a launch on each entry's
+    device (``device`` is then not used); results are bit-identical to
+    the unsharded call.
     Returns (K, B, L) uint8 plaintexts — bit-exact vs
     crypto.tea.TEADecryptor.decrypt (ECB) for each (key, payload) pair.
     """
+    if mesh is not None:
+        payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
+        parts = [tea_decrypt_batch(rows, keys, algorithm, device=d)
+                 for d, rows in _payload_shards(payloads, mesh, axis)]
+        return np.concatenate(parts, axis=1)[:, :payloads.shape[0]]
     v0, v1, kw, tea1, _ = _device_words(payloads, keys, algorithm, device)
     return tea_decrypt(v0, v1, kw, tea1).cpu().numpy()
 
@@ -459,7 +492,7 @@ def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
 
 
 def tea_key_search(payloads, keys, algorithm: str = "TEA1",
-                   device=None) -> dict:
+                   device=None, mesh=None, axis: str | None = None) -> dict:
     """Try every key against every payload on the device.
 
     Args:
@@ -468,6 +501,11 @@ def tea_key_search(payloads, keys, algorithm: str = "TEA1",
             TEA2/3/4), or an (K, key_len) uint8 array.
         algorithm: 'TEA1' or 'TEA2'/'TEA3'/'TEA4' (aliases, crypto.py
             semantics).
+        mesh: optional runtime.sharding.Mesh — shards the payload axis
+            over ``axis`` (default: first mesh axis), a search on each
+            entry's device (``device`` is then not used); the scoring
+            and argmax are per payload, so the results are
+            bit-identical, with no collective.
 
     Returns dict with:
         scores (K, B) int32, best_key_index (B,) int32 (the first
@@ -475,6 +513,16 @@ def tea_key_search(payloads, keys, algorithm: str = "TEA1",
         plaintexts (B, L) uint8 — each payload decrypted with its best
         key (a second launch over the B (best key, payload) pairs).
     """
+    if mesh is not None:
+        payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
+        b = payloads.shape[0]
+        parts = [tea_key_search(rows, keys, algorithm, device=d)
+                 for d, rows in _payload_shards(payloads, mesh, axis)]
+        return {"scores": np.concatenate([p["scores"] for p in parts],
+                                         axis=1)[:, :b],
+                **{k: np.concatenate([p[k] for p in parts])[:b]
+                   for k in ("best_key_index", "best_score",
+                             "plaintexts")}}
     v0, v1, kw, tea1, _ = _device_words(payloads, keys, algorithm, device)
     scores = tea_search(v0, v1, kw, tea1)
     best_score, _ = scores.max(dim=0)

@@ -34,6 +34,27 @@ from tetraear_tpu_torch.dsp import channelizer as chan_mod
 from tetraear_tpu_torch.dsp import design, kernels, timing
 
 
+def plan_granularity(plan: design.ResamplePlan, sps: int) -> int:
+    """Input samples a block must divide by: every stage's M, and an
+    output count dividing by sps AND by every stage's L (the
+    phase-interleave reshape in kernels.stage_apply needs it)."""
+    n = 1
+    for st in plan.stages:
+        n = n * st.down // math.gcd(n, st.down)
+    up = down = 1
+    for st in plan.stages:
+        up *= st.up
+        down *= st.down
+    lcm_l = 1
+    for st in plan.stages:
+        lcm_l = lcm_l * st.up // math.gcd(lcm_l, st.up)
+    need = sps * lcm_l // math.gcd(sps, lcm_l)
+    k = 1
+    while (k * n * up) % (down * need) != 0:
+        k += 1
+    return k * n
+
+
 class CarrierBankDemod:
     """Demodulate C TETRA carriers from a shared wideband capture.
 
@@ -120,23 +141,7 @@ class CarrierBankDemod:
     # -- shape bookkeeping -------------------------------------------------
 
     def _granularity(self) -> int:
-        n = 1
-        for st in self.plan.stages:
-            n = n * st.down // math.gcd(n, st.down)
-        up = down = 1
-        for st in self.plan.stages:
-            up *= st.up
-            down *= st.down
-        k = 1
-        # output block must divide by sps AND by every stage's L (the
-        # phase-interleave reshape in kernels.stage_apply needs it)
-        lcm_l = 1
-        for st in self.plan.stages:
-            lcm_l = lcm_l * st.up // math.gcd(lcm_l, st.up)
-        need = self.sps * lcm_l // math.gcd(self.sps, lcm_l)
-        while (k * n * up) % (down * need) != 0:
-            k += 1
-        return k * n
+        return plan_granularity(self.plan, self.sps)
 
     def _out_len(self, n_in: int) -> int:
         n = n_in

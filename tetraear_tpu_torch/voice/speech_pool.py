@@ -18,8 +18,19 @@ voice carrier's frames of a block in one ``decode_block`` call (one
 
 Audio is sample for sample the host path's (voice/codec.py
 decode_params), because the decoder is bit-exact against the C++ one.
-The reference's ``mesh`` argument (the slot axis sharded over devices)
-is not ported here.
+
+Fleet scaling: the slot axis is embarrassingly parallel (every
+``SpeechState`` leaf is slot-major, and a slot's decode has no term from
+another slot), so a ``mesh`` argument (runtime/sharding.Mesh) shards the
+slots over the devices along one of its axes: each device holds its
+contiguous block of slots' state, each shard with active rows makes its
+own ``decode_block`` call (one ``acelp_decode`` launch) on its device,
+and the active rows' PCM is copied to the host in item order.  There is
+no collective.  PCM is bit-identical to the unsharded pool for any mesh
+size (integer arithmetic).  A checkpoint holds the shards concatenated
+in slot order, the unsharded format; a restore puts each shard's rows
+back on its own device.  In a multi-process mesh each process runs every
+shard on the device its entry names.
 """
 
 from __future__ import annotations
@@ -48,40 +59,63 @@ class DeviceSpeechPool:
     [float32 PCM (n*240,)], carrying per-carrier decoder state on the
     device between calls."""
 
-    def __init__(self, slots: int = 256, device=None):
-        """device: where the decoder states live (None: the card).  On
-        the card the kernel library is built here, so a failed build
-        raises before the first block."""
+    def __init__(self, slots: int = 256, device=None, mesh=None,
+                 axis: str | None = None):
+        """device: where the decoder states live (None: the card).
+        mesh: optional runtime.sharding.Mesh; the slots are sharded over
+        its ``axis`` (default: its first axis), whose size must divide
+        ``slots``, and ``device`` is not used.  On the card the kernel
+        library is built here, so a failed build raises before the first
+        block."""
         from tetraear_tpu_torch.dsp import cuda_kernels as ck
         self.slots = int(slots)
-        self.device = resolve(device)
-        if self.device.type == "cuda":
+        if mesh is not None:
+            axis = axis or mesh.axis_names[0]
+            n_dev = mesh.shape[axis]
+            if self.slots % n_dev:
+                raise ValueError(
+                    f"slots={self.slots} not divisible by mesh axis "
+                    f"'{axis}' size {n_dev}")
+            self.devices = [resolve(d) for d in mesh.axis_devices(axis)]
+        else:
+            self.devices = [resolve(device)]
+        self.device = self.devices[0]
+        per = self.slots // len(self.devices)
+        self._bounds = [(i * per, (i + 1) * per)
+                        for i in range(len(self.devices))]
+        if any(d.type == "cuda" for d in self.devices):
             ck.build()
-        self.state = speech.init_state(self.slots, self.device)
+        # one SpeechState a shard, its block of slots on its device
+        self.states = [speech.init_state(per, d) for d in self.devices]
         self._map: OrderedDict[int, int] = OrderedDict()   # carrier->slot
         self._free = list(range(self.slots - 1, -1, -1))
 
     # -- checkpoint/resume ---------------------------------------------
 
     def checkpoint_state(self) -> tuple:
-        """-> (np leaf list in SpeechState order, json-able meta) holding
-        every decoder state plus the carrier->slot map and LRU order."""
-        leaves = [leaf.cpu().numpy() for leaf in self.state]
+        """-> (np leaf list in SpeechState order, every shard's rows in
+        slot order; json-able meta) holding every decoder state plus the
+        carrier->slot map and LRU order."""
+        leaves = [np.concatenate([st[i].cpu().numpy() for st in self.states])
+                  for i in range(len(speech.SpeechState._fields))]
         meta = {"map": [[int(c), int(s)] for c, s in self._map.items()],
                 "free": [int(s) for s in self._free],
                 "slots": self.slots}
         return leaves, meta
 
     def restore_state(self, leaves, meta: dict) -> None:
+        """Restore a checkpoint_state; each shard's block of rows goes back
+        onto its own device."""
         if int(meta.get("slots", self.slots)) != self.slots:
             raise ValueError(
                 f"checkpoint has {meta.get('slots')} voice slots, pool "
                 f"configured with {self.slots}")
-        if len(self.state) != len(leaves):
+        if len(speech.SpeechState._fields) != len(leaves):
             raise ValueError("voice pool state leaf count mismatch")
-        self.state = speech.SpeechState(*(
-            torch.from_numpy(np.array(leaf, np.int32)).to(self.device)
+        self.states = [speech.SpeechState(*(
+            torch.from_numpy(np.array(leaf[lo:hi], np.int32)).to(dev)
             for leaf in leaves))
+            for (lo, hi), dev in zip(self._bounds, self.devices)]
         self._map = OrderedDict((int(c), int(s)) for c, s in meta["map"])
         self._free = [int(s) for s in meta["free"]]
 
@@ -130,16 +164,28 @@ class DeviceSpeechPool:
         for i, (_, p) in enumerate(items):
             frames[i, :p.shape[0]] = p
             valid[i, :p.shape[0]] = True
-        if reset:
-            mask = torch.zeros(self.slots, dtype=torch.bool)
-            mask[reset] = True
-            self.state = speech.reset_rows(self.state, mask.to(self.device))
-        dev = self.device
-        self.state, pcm = speech.decode_block(
-            self.state, torch.from_numpy(frames).to(dev),
-            torch.from_numpy(valid).to(dev),
-            torch.tensor(rows, dtype=torch.int32))     # host slot list
-        pcm = pcm.cpu().numpy()                        # (A, f_max, 240)
+        rows = np.asarray(rows, np.int32)
+        reset = np.asarray(reset, np.int64)
+        pcms = []
+        for s, ((lo, hi), dev) in enumerate(zip(self._bounds, self.devices)):
+            mine = (reset >= lo) & (reset < hi)
+            if mine.any():
+                mask = torch.zeros(hi - lo, dtype=torch.bool)
+                mask[reset[mine] - lo] = True
+                self.states[s] = speech.reset_rows(self.states[s],
+                                                   mask.to(dev))
+            idx = np.flatnonzero((rows >= lo) & (rows < hi))
+            if not len(idx):
+                continue
+            # the shard's rows as a host list (decode_block's ``rows``)
+            self.states[s], pcm = speech.decode_block(
+                self.states[s], torch.from_numpy(frames[idx]).to(dev),
+                torch.from_numpy(valid[idx]).to(dev),
+                torch.from_numpy((rows[idx] - lo).astype(np.int32)))
+            pcms.append((idx, pcm))
+        pcm = np.zeros((len(items), f_max, speech.L_FRAME), np.int32)
+        for idx, got in pcms:
+            pcm[idx] = got.cpu().numpy()               # (A, f_max, 240)
         return [
             pcm[i, :p.shape[0]].reshape(-1).astype(np.float32) / 32768.0
             for i, (_, p) in enumerate(items)]
