@@ -110,6 +110,23 @@ mesh, the dry run's crypto rung on a mesh of 4 (tea_search a shard);
 scan wideband, WidebandScanner on a 2.4 Msps capture on the card, equal
 to the CPU run, band_synth_y launched, the scan timed.
 
+The tools and profiling (runtime/profiling.py): tools, the port's tools
+as a user runs them (their main, as the CLI dispatches them), each on
+the card and with --device cpu, the outputs equal: continuous-capture
+and decrypt-capture on a 2.4 Msps capture of TEA1 and TEA2 SDS slots
+(the classic conv chain: frame_scan_even; each block's deferred search:
+tea_search), bruteforce-keys over the encrypted frames continuous-capture
+recorded with the 228 common keys (exactly one tea_search launch, the
+texts among the candidates), then timed with the common keys and 4,096
+seeded ones over 50 frames (the tool's wall time, its key-search call,
+the launch alone, the host scoring loop), listen-clear and auto-capture
+on the synthetic voice source, verify-codec; profiling, measure_hbm_gbs
+at 1 and 4 GiB (the 1 GiB rate kept for this card in
+build/tetraear_tpu_torch/), roofline_fraction of the fused chain at
+C=1024 and C=10240, voice_roofline at the rate the speech phase measured,
+and the Profiler around one fused step at C=1024, whose Chrome trace
+must name fft2p, band_synth and fused_backhalf.
+
 Every decode phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a kernel of that path that
 was never launched fails the run.
@@ -121,10 +138,11 @@ device, and a directory without the tetraear_tpu_torch package.
 
 Two other modes print no result line and exit non-zero:
 
-    python3 chip_smoke.py --profile [DIR]   # torch.profiler breakdown
+    python3 chip_smoke.py --profile [DIR]   # the Profiler's breakdown
                                        # of the chained steps and the
                                        # sharded FFT step, written
                                        # to DIR (default profile_out/)
+                                       # with each Chrome trace
     python3 chip_smoke.py --rehearse   # the phases' control flow on the
                                        # CPU at a tiny size (plain
                                        # versions; nothing is built)
@@ -188,22 +206,16 @@ NFFT_ELEMENT = 32768
 RTL_OFFSETS = (12_500.0, -287_500.0)
 FIXTURE = ROOT / "tests" / "fixtures" / "offair_2carrier.cs16"
 
-# published peaks of one H100 SXM (dense): device memory rate and the
-# float32 rate outside the tensor cores.  Integer work has its own rates:
-# on compute capability 9.0 an SM executes 64 32-bit logic operations a
-# clock, and 16 population counts or int-to-float conversions (CUDA C
-# programming manual, arithmetic instruction throughput), on 132 SMs at the
-# SM clock that nvidia-smi reports as clocks.max.sm (read in main).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-N_SMS = 132
-LOGIC_PER_CLK_SM = 64.0
-QUARTER_PER_CLK_SM = 16.0
-# instructions an SM issues a clock (4 schedulers, a warp each): the
-# ceiling of integer work the compiler spreads over the integer pipe and
-# the multiply-add pipe (IMAD forms of shifts and additions)
-ISSUE_PER_CLK_SM = 128.0
-SM_CLOCK_HZ = 1.98e9
+# the card's peaks, one definition (tetraear_tpu_torch/runtime/profiling.py:
+# one H100 SXM's memory rate and float32 rate outside the tensor cores, the
+# integer instruction rates a clock an SM, 132 SMs); main replaces
+# SM_CLOCK_HZ with the clock nvidia-smi reports as clocks.max.sm.  A
+# directory without the package stops in main.
+if (ROOT / "tetraear_tpu_torch").is_dir():
+    sys.path.insert(0, str(ROOT))
+    from tetraear_tpu_torch.runtime.profiling import (  # noqa: E402
+        FP32_OPS_PER_S, HBM_BYTES_PER_S, ISSUE_PER_CLK_SM, LOGIC_PER_CLK_SM,
+        N_SMS, QUARTER_PER_CLK_SM, SM_CLOCK_HZ)
 
 DEV = "cuda"            # "cpu" in the rehearsal
 REHEARSE = False
@@ -1113,7 +1125,8 @@ def tea_floor(reps: int) -> dict:
     return r
 
 
-def phase_tea_path(calls: list, reps: int) -> list:
+def phase_tea_path(calls: list, reps: int,
+                   label: str = "a deferred search of the stream") -> list:
     """tea_search on the inputs of each deferred search a stream made
     (``record_tea_calls``): the fused decrypt it ran there (one launch,
     both families) and each family's search mode bit-equal to their plain
@@ -1177,7 +1190,7 @@ def phase_tea_path(calls: list, reps: int) -> list:
             r.update(parent_tea_path(pay, keys1, keys2, v0, v1, kw1, kw2,
                                      d_k, launch, what, reps))
         res.append(r)
-        say(f"kernel tea_search on a deferred search of the stream, "
+        say(f"kernel tea_search on {label}, "
             f"K={k1}+{k2} B={b} L={8 * w}, one launch: plaintexts and "
             f"scores bit-equal to the plain version, spot pairs equal to "
             f"TEADecryptor, no synchronisation; call {r['ms']:.4f} ms, "
@@ -4406,6 +4419,456 @@ def phase_scan_wideband() -> tuple:
             "capture_ms": len(iq) / FS_RTL * 1e3}, counts
 
 
+# -- the tools and profiling ----------------------------------------------
+
+# (cipher, key, SDS payload) of the tools' capture: both keys are in the
+# common-key list (tools/generate_common_keys.py)
+TOOL_CIPHERS = (("TEA1", "0123456789ABCDEF0123", "RELOCATE NOW"),
+                ("TEA2", "0123456789ABCDEF0123456789ABCDEF",
+                 "GATE SEVEN OPEN"))
+TOOL_SLOTS = 24
+# bruteforce-keys at a dictionary size a user runs: the common keys plus
+# seeded keys (half TEA1, half TEA2) over 50 recorded frames (the tool's
+# --max-frames default)
+BF_SEEDED_KEYS = 4096
+BF_FRAMES = 50
+# the tools that take --device (the others run on the host only)
+DEVICE_TOOLS = ("continuous_capture", "decrypt_capture", "listen_clear",
+                "auto_capture", "bruteforce_keys")
+
+
+def tools_capture(path: Path, seed: int, n_slots: int) -> None:
+    """A 2.4 Msps capture on the tools' default channel (offset 0): SDS
+    slots encrypted in turn with TOOL_CIPHERS' TEA1 and TEA2 keys, 25 dB
+    SNR (the port's golden, modulator and TEADecryptor)."""
+    import numpy as np
+    from tetraear_tpu_torch.crypto.tea import TEADecryptor
+    from tetraear_tpu_torch.ref import golden, modulator
+    from tetraear_tpu_torch.runtime.sources import write_capture
+    rng = np.random.default_rng(seed)
+    slots = []
+    for i in range(n_slots):
+        alg, key, text = TOOL_CIPHERS[i % len(TOOL_CIPHERS)]
+        clear = golden.sds_text_payload(text)
+        clear += b"\x00" * ((-len(clear)) % 8)
+        cipher = TEADecryptor(bytes.fromhex(key), alg).encrypt(clear)
+        slots.append(golden.build_slot(golden.build_mac_resource_data_bits(
+            cipher, rng=rng, enc_mode=1), rng=rng))
+    pad = rng.integers(0, 2, 64).astype(np.uint8)
+    iq = modulator.generate_carrier(np.concatenate([pad] + slots), fs=FS_RTL)
+    write_capture(path, modulator.add_awgn(iq, 25, rng))
+
+
+def tool_runs() -> tuple:
+    """The tools' two runs: on DEV (the card; the CPU in the rehearsal)
+    and on the CPU, each into directories of its own."""
+    return (("card", DEV), ("cpu", "cpu"))
+
+
+def tool_run(name: str, argv: list, device: str,
+             out_dir: Path | None = None) -> tuple:
+    """A tool's main as the CLI calls it, on the card (no --device: the
+    default) or with --device cpu, its stdout kept; launch counts set to
+    0 just before and read just after.  Returns (rc, stdout, launches,
+    seconds); ``out_dir`` in the stdout reads <out>."""
+    import contextlib
+    import importlib
+    import io
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    mod = importlib.import_module(f"tetraear_tpu_torch.tools.{name}")
+    if device == "cpu" and name in DEVICE_TOOLS:
+        argv = [*argv, "--device", "cpu"]
+    buf = io.StringIO()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    sync()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    if out_dir is not None:
+        out = out.replace(str(out_dir), "<out>")
+    return rc, out, dict(ck.launches), seconds
+
+
+def wall_clock_names(out: str) -> str:
+    """``out`` with the wall-clock stamp of each call file's name
+    (voice/export.py: call_tg<tg>_<YYYYmmdd_HHMMSS>.wav, the second the
+    call started) replaced: the card's run and the CPU run start their
+    calls in different seconds whenever a second boundary falls between
+    them.  The files' PCM is compared on its own."""
+    return re.sub(r"(call_tg\d+)_\d{8}_\d{6}\.wav", r"\1_<start>.wav", out)
+
+
+def tool_pair(name: str, argv_of, what: str) -> tuple:
+    """The tool on the card and on the CPU (argv_of("card" or "cpu") ->
+    (argv, output directory or None)); fails unless both exit 0 with the
+    same stdout, call files' wall-clock stamps aside.  Returns (the
+    card's stdout, its launches, its seconds)."""
+    runs = {}
+    for run, device in tool_runs():
+        argv, out_dir = argv_of(run)
+        rc, out, counts, secs = tool_run(name, argv, device, out_dir)
+        runs[run] = (rc, wall_clock_names(out), counts, secs)
+        if runs[run][0] != 0:
+            fail(f"tools {what} on {device}: exit code {runs[run][0]}:\n"
+                 f"{runs[run][1][-2000:]}")
+    if runs["card"][1] != runs["cpu"][1]:
+        fail(f"tools {what}: the card's output differs from the CPU "
+             f"run's:\n{runs['card'][1][-1500:]}\n--- cpu ---\n"
+             f"{runs['cpu'][1][-1500:]}")
+    return runs["card"][1:]
+
+
+def jsonl_frames(out_dir: Path) -> list:
+    logs = sorted(out_dir.glob("continuous_*.jsonl"))
+    if len(logs) != 1:
+        fail(f"tools continuous-capture: {len(logs)} logs in {out_dir}")
+    return [json.loads(line) for line in logs[0].read_text().splitlines()]
+
+
+def bruteforce_inputs(d: Path, common: list, seed: int, n_keys: int,
+                      n_frames: int) -> tuple:
+    """The timed bruteforce-keys run's inputs: a key file of the common
+    keys and n_keys seeded ones (half TEA1, half TEA2), and a JSONL of
+    n_frames encrypted SDS frames, every fourth under a seeded key, the
+    others under common keys, between clear frames."""
+    import numpy as np
+    from tetraear_tpu_torch.crypto.tea import TEADecryptor
+    rng = np.random.default_rng(seed)
+    seeded = [("TEA1" if i % 2 == 0 else "TEA2",
+               rng.bytes(10 if i % 2 == 0 else 16).hex().upper())
+              for i in range(n_keys)]
+    keys = d / "bf_keys.txt"
+    keys.write_text("\n".join([*common, *(f"{a}:9:{k}" for a, k in seeded)])
+                    + "\n")
+    known = [(a, k) for a, k in (line.split(":")[0::2] for line in common)
+             if a in ("TEA1", "TEA2")]
+    rows = []
+    for i in range(n_frames):
+        alg, key = (seeded[(i // 4) % len(seeded)] if i % 4 == 0
+                    else known[int(rng.integers(len(known)))])
+        text = f"\x82UNIT {i} STATUS {int(rng.integers(1000))}".encode(
+            "latin-1")
+        text += b"\x00" * ((-len(text)) % 8)
+        cipher = TEADecryptor(bytes.fromhex(key), alg).encrypt(text)
+        rows.append(json.dumps({"encrypted": True, "number": i,
+                                "mac_pdu": {"data": cipher.hex()}}))
+        rows.append(json.dumps({"encrypted": False, "number": i}))
+    frames = d / "bf_frames.jsonl"
+    frames.write_text("\n".join(rows) + "\n")
+    return frames, keys
+
+
+def time_bruteforce(frames: Path, keys: Path, reps: int) -> dict:
+    """bruteforce-keys on the card at a user's size, its time split: the
+    tool's wall time; its one key-search call (tea_decrypt_families:
+    upload, launch, fetch), host wall; the host scoring loop after it
+    (to the tool's end); then the recorded search replayed by
+    phase_tea_path (call and launch alone by CUDA events, plain version,
+    bound)."""
+    from tetraear_tpu_torch.crypto import batch as tb
+    calls, marks = [], {}
+    undo = record_tea_calls(calls)
+    recording = tb.tea_decrypt_families
+
+    def timed(*a, **k):
+        marks["call_start"] = time.perf_counter()
+        out = recording(*a, **k)
+        marks["call_end"] = time.perf_counter()
+        return out
+
+    tb.tea_decrypt_families = timed
+    try:
+        t_begin = time.perf_counter()
+        rc, out, counts, seconds = tool_run(
+            "bruteforce_keys", [str(frames), "-k", str(keys)], DEV)
+    finally:
+        undo()
+    if rc != 0 or len(calls) != 1:
+        fail(f"tools bruteforce-keys timed: exit {rc}, {len(calls)} key "
+             f"searches")
+    if DEV != "cpu" and counts["tea_search"] != 1:
+        fail(f"tools bruteforce-keys timed: {counts['tea_search']} "
+             f"tea_search launches, want 1")
+    pay, k1, k2 = calls[0]
+    path = phase_tea_path(calls, reps, "bruteforce-keys' key search")[0]
+    r = {"wall_ms": seconds * 1e3,
+         "call_ms": (marks["call_end"] - marks["call_start"]) * 1e3,
+         "before_call_ms": (marks["call_start"] - t_begin) * 1e3,
+         "keys1": len(k1), "keys2": len(k2), "frames": int(pay.shape[0]),
+         "length": int(pay.shape[1]),
+         "candidates": sum(1 for line in out.splitlines()
+                           if line.startswith("[+] candidate")),
+         "tea_search_launches": counts["tea_search"],
+         "search": {k: path[k] for k in (
+             "ms", "launch_ms", "plain_ms", "round_trip_ms", "bound_ms",
+             "bound_by")}}
+    # the rest of the tool's wall time: the scoring loop, its sort and
+    # its prints
+    r["scoring_ms"] = r["wall_ms"] - r["before_call_ms"] - r["call_ms"]
+    say(f"tools bruteforce-keys timed: {r['keys1']}+{r['keys2']} keys (TEA1 "
+        f"+ TEA2 families) x {r['frames']} frames x L {r['length']}, one "
+        f"tea_search launch; the tool {r['wall_ms']:.1f} ms wall: reading "
+        f"and packing {r['before_call_ms']:.1f} ms, the key search call "
+        f"{r['call_ms']:.2f} ms (upload, launch, fetch; replayed: call "
+        f"{path['ms']:.4f} ms, launch alone {path['launch_ms']:.4f} ms, "
+        f"plain {path['plain_ms']:.2f} ms, bound {path['bound_ms']:.5f} ms "
+        f"by {path['bound_by']}), the host scoring loop "
+        f"{r['scoring_ms']:.1f} ms ({r['candidates']} candidates printed)")
+    return r
+
+
+def phase_tools(seed: int, reps: int) -> dict:
+    """The tools on the card, each equal to its --device cpu run:
+    continuous-capture and decrypt-capture on a 2.4 Msps capture of TEA1
+    and TEA2 SDS slots (the classic conv chain: frame_scan_even; the
+    deferred search of each block: tea_search), bruteforce-keys over the
+    encrypted frames continuous-capture recorded with the common keys
+    (exactly one tea_search launch, the transmitted texts among the
+    candidates), then timed at a user's size; listen-clear and
+    auto-capture on the synthetic voice source; verify-codec."""
+    import tempfile
+    from tetraear_tpu_torch.tools.generate_common_keys import generate
+    res, launches = {}, {}
+    n_slots = 8 if REHEARSE else TOOL_SLOTS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        d = Path(tmp)
+        capture = d / "enc.cfile"
+        tools_capture(capture, seed, n_slots)
+        common = d / "common.txt"
+        rc, _, _, _ = tool_run("generate_common_keys", ["-o", str(common)],
+                               "cpu")
+        if rc != 0 or len(generate()) != 228:
+            fail("tools generate-keys: not the 228 common keys")
+        n_each = n_slots // len(TOOL_CIPHERS)
+
+        # continuous-capture: the JSONL log, card against CPU
+        logs = {}
+        for run, device in tool_runs():
+            out_dir = d / f"cc_{run}"
+            rc, _, counts, secs = tool_run(
+                "continuous_capture", ["--source", str(capture),
+                                       "-o", str(out_dir)], device)
+            if rc != 0:
+                fail(f"tools continuous-capture on {device}: exit {rc}")
+            logs[run] = jsonl_frames(out_dir)
+            if run == "card":
+                launches["continuous_capture"] = counts
+                res["continuous_capture_s"] = secs
+
+        def key(f):
+            return (f.get("stream_symbol"), f.get("burst_crc"),
+                    f.get("encrypted"), f.get("decrypted"),
+                    f.get("key_used"), f.get("sds_message"),
+                    (f.get("mac_pdu") or {}).get("data"))
+
+        if [key(f) for f in logs["card"]] != [key(f) for f in logs["cpu"]]:
+            fail(f"tools continuous-capture: the card's {len(logs['card'])} "
+                 f"frames differ from the CPU run's {len(logs['cpu'])}")
+        need_launched("tools continuous-capture",
+                      launches["continuous_capture"],
+                      ("frame_scan_even", "tea_search"))
+        for _, _, text in TOOL_CIPHERS:
+            got = sum(f.get("sds_message") == f"[TXT] {text}"
+                      for f in logs["card"] if f.get("decrypted"))
+            if got < n_each - 1:
+                fail(f"tools continuous-capture: {got} frames decrypted to "
+                     f"{text!r} of {n_each} sent")
+        enc = [f for f in logs["card"] if f.get("encrypted")]
+        used = {k: v for k, v in launches["continuous_capture"].items() if v}
+        say(f"tools continuous-capture: {len(logs['card'])} frames "
+            f"({len(enc)} encrypted, all decrypted with common keys) equal "
+            f"to the CPU run, {res['continuous_capture_s']:.2f} s; launches "
+            f"{used}")
+
+        # decrypt-capture: its report, card against CPU
+        out, counts, secs = tool_pair(
+            "decrypt_capture", lambda dev: (["--source", str(capture)], None),
+            "decrypt-capture")
+        launches["decrypt_capture"] = counts
+        need_launched("tools decrypt-capture", counts,
+                      ("frame_scan_even", "tea_search"))
+        n_dec = out.count("[+] DECRYPTED")
+        if n_dec < n_slots - 2 or not all(text in out
+                                          for _, _, text in TOOL_CIPHERS):
+            fail(f"tools decrypt-capture: {n_dec} decryptions reported:\n"
+                 f"{out[-1500:]}")
+        say(f"tools decrypt-capture: {n_dec} decrypted frames reported "
+            f"(keys, confidences, texts) equal to the CPU run, {secs:.2f} "
+            f"s; launches { {k: v for k, v in counts.items() if v} }")
+
+        # bruteforce-keys over the recorded encrypted frames, common keys
+        log = sorted((d / "cc_card").glob("continuous_*.jsonl"))[0]
+        out, counts, secs = tool_pair(
+            "bruteforce_keys",
+            lambda dev: ([str(log), "-k", str(common)], None),
+            "bruteforce-keys")
+        launches["bruteforce_keys"] = counts
+        if DEV != "cpu" and counts["tea_search"] != 1:
+            fail(f"tools bruteforce-keys: {counts['tea_search']} tea_search "
+                 f"launches, want exactly 1")
+        cands = [line for line in out.splitlines()
+                 if line.startswith("[+] candidate")]
+        for alg, k, text in TOOL_CIPHERS:
+            if not any(f"key={alg}:{k[:20]}..." in c and text in c
+                       for c in cands):
+                fail(f"tools bruteforce-keys: {text!r} under {alg} not "
+                     f"among the {len(cands)} candidates")
+        res["bruteforce_keys_common"] = {"candidates": len(cands),
+                                         "frames": len(enc),
+                                         "wall_s": secs}
+        say(f"tools bruteforce-keys: {len(enc)} recorded frames x the 228 "
+            f"common keys, one tea_search launch "
+            f"({counts['tea_search']}), {len(cands)} candidates equal to "
+            f"the CPU run, the transmitted texts among them, {secs:.2f} s")
+
+        # bruteforce-keys timed at a user's dictionary size
+        n_keys, n_frames = ((64, 8) if REHEARSE
+                            else (BF_SEEDED_KEYS, BF_FRAMES))
+        frames, keys = bruteforce_inputs(
+            d, [line for line in common.read_text().splitlines()
+                if line and not line.startswith("#")], seed + 1, n_keys,
+            n_frames)
+        res["bruteforce_keys"] = time_bruteforce(frames, keys, reps)
+
+        # listen-clear and auto-capture on the synthetic voice source
+        def calls_of(run):
+            return (["--source", "synthetic-voice", "--max-blocks", "4",
+                     "-o", str(d / f"calls_{run}")], d / f"calls_{run}")
+
+        out, counts, secs = tool_pair("listen_clear", calls_of,
+                                      "listen-clear")
+        wavs = {run: [p.read_bytes() for p in sorted(
+            (d / f"calls_{run}").glob("*.wav"))] for run, _ in tool_runs()}
+        if not wavs["card"] or wavs["card"] != wavs["cpu"]:
+            fail(f"tools listen-clear: {len(wavs['card'])} calls on the card, "
+                 f"not equal to the CPU run's {len(wavs['cpu'])}")
+        launches["listen_clear"] = counts
+        say(f"tools listen-clear: {out.splitlines()[-1]}; the calls' PCM "
+            f"equal to the CPU run, {secs:.2f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        for source in ("synthetic", "synthetic-voice"):
+            def auto_of(run, source=source):
+                o = d / f"auto_{source}_{run}"
+                return (["--source", source, "--max-blocks", "5",
+                         "-o", str(o)], o)
+
+            out, counts, secs = tool_pair("auto_capture", auto_of,
+                                          f"auto-capture {source}")
+            hits = {run: {p.name: p.read_bytes() for p in sorted(
+                (d / f"auto_{source}_{run}").glob("hit_*"))}
+                for run, _ in tool_runs()}
+            if not hits["card"] or hits["card"] != hits["cpu"]:
+                fail(f"tools auto-capture {source}: files "
+                     f"{sorted(hits['card'])} differ from the CPU run's")
+            launches[f"auto_capture_{source}"] = counts
+            say(f"tools auto-capture {source}: {sorted(hits['card'])} equal "
+                f"to the CPU run, {secs:.2f} s; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+
+    rc, out, _, _ = tool_run("verify_codec", ["--build"], "cpu")
+    if rc != 0:
+        fail(f"tools verify-codec: exit {rc}:\n{out[-1500:]}")
+    say("tools verify-codec: 0 (the port's voice/csrc library)")
+    res["launches"] = launches
+    return res
+
+
+def phase_profiling(card: str, chains: dict, sp: dict, c: int,
+                    c_big: int, nfft: int | None) -> dict:
+    """runtime/profiling on the card: measure_hbm_gbs at 1 GiB (and 4
+    GiB), kept as this card's rate; roofline_fraction of the fused chain
+    steps' measured rt_factor at C=1024 and C=10240 against the H100's
+    peaks and that rate; voice_roofline at the rate the speech phase
+    measured acelp_decode to retire the ETSI basic operations; and the
+    Profiler around one fused chained step at C=1024, whose trace must
+    name fft2p, band_synth and fused_backhalf."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.dsp import framescan
+    from tetraear_tpu_torch.dsp.backhalf import FusedRx
+    from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
+    from tetraear_tpu_torch.runtime import profiling
+    res = {}
+    mbs = (8, 32) if REHEARSE else (1024, 4096)
+    gbs = {mb: profiling.measure_hbm_gbs(DEV, mb=mb) for mb in mbs}
+    res["hbm_gbs"] = {str(mb): v for mb, v in gbs.items()}
+    if DEV != "cpu":
+        key = profiling.card_key() or card
+        res["hbm_record"] = str(profiling.record_hbm_gbs(
+            gbs[1024], 1024, 16, key))
+    say(f"profiling measure_hbm_gbs on {card}: "
+        + ", ".join(f"{v:.1f} GB/s at {mb} MiB" for mb, v in gbs.items())
+        + f" ({100 * gbs[mbs[0]] * 1e9 / profiling.HBM_BYTES_PER_S:.1f}% of "
+          f"the {profiling.HBM_BYTES_PER_S / 1e12:.2f} TB/s datasheet rate "
+          f"at {mbs[0]} MiB)")
+    if REHEARSE:
+        os.environ["TETRAEAR_MEASURED_GBS"] = str(gbs[mbs[0]])
+    try:
+        roof = {}
+        for name, fs, n in (("c1024", FS_FLEET, c),
+                            ("c10240", FS_BENCH, c_big)):
+            rt = chains[name]["rt_factor"]
+            r = profiling.roofline_fraction(n, fs, rt, "fft")
+            roof[name] = r
+            say(f"profiling roofline_fraction {name} (fused chain, rt_factor "
+                f"{rt:.3f}): roofline_pct {r['roofline_pct']:.3f}, "
+                f"roofline_measured_pct {r['roofline_measured_pct']:.3f} "
+                f"(against {r['measured_gbs']:.1f} GB/s, "
+                f"{r['measured_gbs_source']}), bound {r['bound']}, achieved "
+                f"{r['achieved_tflops']:.4f} TFLOP/s and "
+                f"{r['achieved_gbs']:.2f} GB/s")
+        res["roofline"] = roof
+    finally:
+        if REHEARSE:
+            del os.environ["TETRAEAR_MEASURED_GBS"]
+    s256 = sp[min(k for k in sp if isinstance(k, int))]
+    eff = s256["etsi_ops"] / (s256["kernel_ms"] * 1e-3)
+    vr = profiling.voice_roofline(1024, 0.1129, basicops_per_frame=s256[
+        "etsi_ops_per_frame"], eff_ops_per_s=eff)
+    res["voice_roofline"] = vr
+    issue = vr["theoretical_int_issue_per_s"]
+    say(f"profiling voice_roofline: acelp_decode retired {eff:.4g} ETSI "
+        f"basic operations a second in this run (S={s256['slots']}, "
+        f"{s256['etsi_ops_per_frame']:.0f} a frame; the module's default "
+        f"{profiling.ACELP_EFF_OPS_PER_S:.3g}), "
+        f"{vr['model_voice_carriers_rt']:.0f} voice carriers in real time "
+        f"at 4 frames a carrier and block, {100 * eff / issue:.2f}% of the "
+        f"integer issue rate {issue:.3g}/s")
+    bank = CarrierBankDemod(fs=FS_FLEET, freqs_hz=grid(c), frontend="fft",
+                            nfft=nfft)
+    fused = FusedRx(bank, DEV)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, bank.block_len)).astype(np.float32)).to(DEV)
+    state = fused.init_state()
+    for _ in range(2):                               # warm-up
+        out, state = fused.step(x, state)
+    sync()
+    with profiling.Profiler(ROOT / "profile_out" / "traces",
+                            device=DEV) as prof:
+        out, state = fused.step(x, state)
+        keys, counts = framescan.sparse_hits(out["corr"], out["crc_err"])
+        counts.sum().item()
+    trace = json.loads(prof.trace_path.read_text())
+    names = [ev.get("name", "") for ev in trace.get("traceEvents", [])
+             if ev.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in names) for k in FUSED_KERNELS}
+    if DEV != "cpu" and not all(found.values()):
+        fail(f"profiling: the trace {prof.trace_path} lacks kernel events of "
+             f"{[k for k, v in found.items() if not v]} "
+             f"({len(names)} kernel events)")
+    busy = sum(e - s for _, s, e in prof.kernel_events()) / 1e3
+    res["trace"] = {"path": str(prof.trace_path.relative_to(ROOT)),
+                    "kernel_events": len(names), "fused_kernels": found,
+                    "device_busy_ms": busy}
+    say(f"profiling Profiler: one fused step at C={c}, trace "
+        f"{res['trace']['path']} ({len(names)} kernel events; "
+        + ", ".join(f"{k} x{v}" for k, v in found.items())
+        + f"; {busy:.3f} ms of device time)")
+    return res
+
+
 PROFILE_GROUPS = (
     ("hand-written kernels", ("band_synth_kernel", "frame_scan_kernel",
                               "fused_backhalf_kernel", "fft2p_pass",
@@ -4421,10 +4884,11 @@ PROFILE_GROUPS = (
 
 
 def profile_chain(name: str, run, n_blocks: int, out_dir: Path) -> None:
-    """torch.profiler over n_blocks chained steps after warm-up: device
-    time by kernel name, launches per block, busy and idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """The port's Profiler (runtime/profiling.py: torch.profiler, a Chrome
+    trace into out_dir/traces) over n_blocks chained steps after warm-up:
+    device time by kernel name, launches per block, busy and idle
+    share."""
+    from tetraear_tpu_torch.runtime.profiling import Profiler
     run(3)
     sync()
     wall_ms = float("inf")
@@ -4433,20 +4897,14 @@ def profile_chain(name: str, run, n_blocks: int, out_dir: Path) -> None:
         run(n_blocks)
         sync()
         wall_ms = min(wall_ms, (time.time() - t0) / n_blocks * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with Profiler(out_dir / "traces", device=DEV) as prof:
         run(n_blocks)
-        torch.cuda.synchronize()
     spans = []
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start = ev.time_range.start
-        dur = ev.time_range.end - start
-        spans.append((start, start + dur))
-        tot, cnt = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (tot + dur, cnt + 1)
+    for kname, start, end in prof.kernel_events():
+        spans.append((start, end))
+        tot, cnt = by_name.get(kname, (0.0, 0))
+        by_name[kname] = (tot + end - start, cnt + 1)
     if not spans:
         fail(f"profile {name}: the profiler recorded no device time")
     spans.sort()
@@ -4468,6 +4926,7 @@ def profile_chain(name: str, run, n_blocks: int, out_dir: Path) -> None:
         groups[grp] = (g_tot + tot, g_cnt + cnt)
     report = {
         "name": name, "blocks": n_blocks, "wall_ms_per_block": wall_ms,
+        "trace": str(prof.trace_path),
         "device_busy_ms_per_block": busy / 1e3 / n_blocks,
         "idle_share_of_span": 1.0 - busy / span,
         "launches_per_block": len(spans) / n_blocks,
@@ -4804,6 +5263,11 @@ def main(argv: list) -> int:
         chains["c10240"]["ms_per_block"], n_frame=1, n_whole=1, workers=w)
         for w in (2, 4)}
     say(f"[{time.time() - t_start:.0f} s] chains timed")
+    t_tools = time.time()
+    tools = phase_tools(seed=61, reps=5)
+    prof = phase_profiling(card, chains, sp, c_fleet, c_bench, nfft_fleet)
+    say(f"[{time.time() - t_start:.0f} s] tools and profiling phases done "
+        f"in {time.time() - t_tools:.0f} s")
 
     # multi-device sharding (virtual meshes of the card) and the scanners;
     # the rehearsal's stand-ins: 2.304 and 10.24 MHz at C=8
@@ -4845,7 +5309,15 @@ def main(argv: list) -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         if name == "tea_search":
-            kernels.append(tea_entry(tea, tea_path, counts_stream, tea_fl))
+            entry = tea_entry(tea, tea_path, counts_stream, tea_fl)
+            entry["launches_bruteforce_keys"] = \
+                tools["launches"]["bruteforce_keys"]["tea_search"]
+            entry["bruteforce_keys"] = tools["bruteforce_keys"]
+            entry["launches_tools"] = {
+                t: tools["launches"][t]["tea_search"]
+                for t in ("continuous_capture", "decrypt_capture",
+                          "bruteforce_keys")}
+            kernels.append(entry)
             continue
         if name == "viterbi_decode":
             kernels.append(viterbi_entry(vit, vit_floor, vit_path,
@@ -4879,6 +5351,10 @@ def main(argv: list) -> int:
                 "source_bytes_c10240": k2["source_bytes"],
                 "real_grid": grids[name]}
                if name in grids else {}),
+            **({"launches_tools": {
+                t: tools["launches"][t][name]
+                for t in ("continuous_capture", "decrypt_capture")}}
+               if name == "frame_scan_even" else {}),
             **({"unspliced_ms": k1["unspliced_ms"],
                 "unspliced_plain_ms": k1["unspliced_plain_ms"],
                 "unspliced_ms_c10240": k2["unspliced_ms"],
@@ -4911,7 +5387,10 @@ def main(argv: list) -> int:
             "sharded_fft_c10240": counts_sh_big,
             "nccl_one_rank": counts_nccl,
             "voice_mesh": counts_vmesh, "crypto_mesh": counts_cmesh,
-            "scan_wideband": counts_scan},
+            "scan_wideband": counts_scan,
+            **{f"tools_{t}": c for t, c in tools["launches"].items()}},
+        "tools": {k: v for k, v in tools.items() if k != "launches"},
+        "profiling": prof,
         "sharding": {
             "conv": conv_sh, "fft_fleet": sh_fleet,
             "fft_fleet_aligned": sh_aligned, "fft_c10240": sh_big,

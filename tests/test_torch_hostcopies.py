@@ -72,6 +72,26 @@ COPIES = {
                           "_worker_main",
                           "ShardedFrameLayer.parser_states",
                           "ShardedFrameLayer.set_parser_states"),
+    "utils/keyload.py": (),
+    "utils/settings.py": (),
+    "ref/legacy.py": (),
+    "tools/__init__.py": (),
+    "tools/generate_common_keys.py": (),
+    "tools/analyze_text.py": (),
+    # the tools take --device (the reference's have no such flag) and
+    # raise without a card unless it says cpu; bruteforce-keys' search
+    # is one launch for both cipher families (tea_decrypt_families),
+    # its score_text / load_keys equal
+    "tools/bruteforce_keys.py": ("main",),
+    "tools/decrypt_capture.py": ("main",),
+    "tools/continuous_capture.py": ("main",),
+    "tools/listen_clear.py": ("main",),
+    "tools/auto_capture.py": ("main",),
+    # --build builds the port's voice/csrc through native.py
+    "tools/verify_codec.py": ("main",),
+    # the port's archive: its package and chip_smoke.py, no build/
+    # directory or shared library, the port's two libraries built
+    "tools/build_release.py": ("build", "<module statements>"),
 }
 
 # string literals the copies word otherwise (original -> copy)
@@ -105,6 +125,9 @@ PARTS = {
     "_expected_signs": ("voice/jviterbi.py", "voice/viterbi.py"),
     "_code_step_index": ("voice/jviterbi.py", "voice/viterbi.py"),
     "_unbuild": ("voice/jviterbi.py", "voice/viterbi.py"),
+    # the profiling module's host parts (the rest is the H100's roofline)
+    "StageTimers": ("runtime/profiling.py", "runtime/profiling.py"),
+    "roofline_estimate": ("runtime/profiling.py", "runtime/profiling.py"),
 }
 
 
@@ -204,7 +227,20 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
         " 'tetraear_tpu_torch.runtime.multichip',"
         " 'tetraear_tpu_torch.ref.demod',"
         " 'tetraear_tpu_torch.scan.detector',"
-        " 'tetraear_tpu_torch.scan.scanner'}\n"
+        " 'tetraear_tpu_torch.scan.scanner',"
+        " 'tetraear_tpu_torch.runtime.profiling',"
+        " 'tetraear_tpu_torch.utils.keyload',"
+        " 'tetraear_tpu_torch.utils.settings',"
+        " 'tetraear_tpu_torch.ref.legacy',"
+        " 'tetraear_tpu_torch.tools.bruteforce_keys',"
+        " 'tetraear_tpu_torch.tools.decrypt_capture',"
+        " 'tetraear_tpu_torch.tools.continuous_capture',"
+        " 'tetraear_tpu_torch.tools.listen_clear',"
+        " 'tetraear_tpu_torch.tools.auto_capture',"
+        " 'tetraear_tpu_torch.tools.verify_codec',"
+        " 'tetraear_tpu_torch.tools.build_release',"
+        " 'tetraear_tpu_torch.tools.generate_common_keys',"
+        " 'tetraear_tpu_torch.tools.analyze_text'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print('CLEAN', len(names))\n")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
@@ -255,8 +291,12 @@ def test_resolve_cpu_only_when_asked():
                                    "sharded", "voice_decode",
                                    "speech_pool", "speech_state",
                                    "mesh", "multichip", "wideband_scan",
-                                   "scan_cli"])
-def test_entry_points_raise_without_a_card(entry, tmp_path):
+                                   "scan_cli", "bruteforce_keys",
+                                   "decrypt_capture", "continuous_capture",
+                                   "listen_clear", "auto_capture",
+                                   "profiler", "measure_hbm",
+                                   "measured_hbm", "tool_cli"])
+def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
     _no_card()
@@ -275,8 +315,17 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
     from tetraear_tpu_torch.voice.speech import init_state
     from tetraear_tpu_torch.voice.speech_pool import DeviceSpeechPool
     from tetraear_tpu_torch.voice.viterbi import channel_decode_batch
+    from tetraear_tpu_torch.runtime import profiling
+    from tetraear_tpu_torch import tools
+    import importlib
 
     import numpy as np
+    monkeypatch.delenv("TETRAEAR_MEASURED_GBS", raising=False)
+    out = str(tmp_path / "out")
+
+    def tool(name, *argv):
+        return lambda: importlib.import_module(
+            f"{tools.__name__}.{name}").main(list(argv))
     calls = {
         "pipeline": lambda: Pipeline(PipelineConfig()),
         "fused": lambda: FusedRx(CarrierBankDemod(
@@ -307,6 +356,19 @@ def test_entry_points_raise_without_a_card(entry, tmp_path):
             np.zeros(300_000, np.complex64)),
         "scan_cli": lambda: main(["scan", "--wideband", "--source",
                                   "synthetic", "--dwell", "0.1"]),
+        "bruteforce_keys": tool("bruteforce_keys", str(tmp_path / "f.jsonl"),
+                                "-k", str(tmp_path / "k.txt")),
+        "decrypt_capture": tool("decrypt_capture", "--max-blocks", "1"),
+        "continuous_capture": tool("continuous_capture", "--max-blocks",
+                                   "1", "-o", out),
+        "listen_clear": tool("listen_clear", "--max-blocks", "1", "-o", out),
+        "auto_capture": tool("auto_capture", "--source", "synthetic",
+                             "--max-blocks", "1", "-o", out),
+        "profiler": lambda: profiling.Profiler(tmp_path),
+        "measure_hbm": lambda: profiling.measure_hbm_gbs(mb=1, steps=1),
+        "measured_hbm": lambda: profiling.measured_hbm_gbs(tmp_path, mb=1),
+        "tool_cli": lambda: main(["continuous-capture", "--max-blocks", "1",
+                                  "-o", out]),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()

@@ -1,5 +1,5 @@
-"""Command-line interface of the port: ``listen``, ``decode`` and
-``scan``.
+"""Command-line interface of the port: ``listen``, ``decode``,
+``scan`` and the tools.
 
     python -m tetraear_tpu_torch listen --source synthetic --max-blocks 4
     python -m tetraear_tpu_torch decode --source capture.cs16 -s 2.4 \\
@@ -17,6 +17,13 @@ given.  ``scan`` looks for TETRA channels: ``--wideband`` scores every
 (scan.scanner.WidebandScanner, on ``--device``); without it the step
 scanner retunes the source over [start, stop] MHz and analyses each
 channel on the host (FrequencyScanner).
+
+The tool subcommands (``TOOLS``: ``bruteforce-keys``, ``decrypt-capture``,
+``continuous-capture``, ``listen-clear``, ``auto-capture``,
+``generate-keys``, ``analyze-text``, ``verify-codec``, ``build-release``)
+hand the rest of the command line to the tool's own ``main``:
+
+    python -m tetraear_tpu_torch bruteforce-keys frames.jsonl -k keys.txt
 """
 
 from __future__ import annotations
@@ -239,6 +246,21 @@ def cmd_scan(args) -> int:
     return 0
 
 
+# subcommand -> module of tetraear_tpu_torch.tools whose main() takes the
+# rest of the command line (the JAX CLI's tool dispatch)
+TOOLS = (
+    ("listen-clear", "listen_clear"),
+    ("continuous-capture", "continuous_capture"),
+    ("decrypt-capture", "decrypt_capture"),
+    ("bruteforce-keys", "bruteforce_keys"),
+    ("generate-keys", "generate_common_keys"),
+    ("analyze-text", "analyze_text"),
+    ("verify-codec", "verify_codec"),
+    ("auto-capture", "auto_capture"),
+    ("build-release", "build_release"),
+)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tetraear_tpu_torch",
@@ -263,7 +285,17 @@ def main(argv=None) -> int:
     p.add_argument("--dwell", type=float, default=0.2,
                    help="seconds of capture a wideband scan reads")
     p.set_defaults(func=cmd_scan)
-    args = parser.parse_args(argv)
+    for name, module in TOOLS:
+        p = sub.add_parser(name, help=f"tool: {module}", add_help=False)
+        p.set_defaults(tool_module=module)
+    args, rest = parser.parse_known_args(argv)
+    if getattr(args, "tool_module", None):
+        import importlib
+        mod = importlib.import_module(
+            f"tetraear_tpu_torch.tools.{args.tool_module}")
+        return mod.main(rest)
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     if not getattr(args, "func", None):
         parser.print_help()
         return 2
