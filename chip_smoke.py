@@ -127,6 +127,22 @@ C=1024 and C=10240, voice_roofline at the rate the speech phase measured,
 and the Profiler around one fused step at C=1024, whose Chrome trace
 must name fft2p, band_synth and fused_backhalf.
 
+The UI and the examples: ui, the PyQt6 window (ui/qt.py over
+tests/unit/qt_stub.py, as the machine has no PyQt6) at its users' size,
+2.4 Msps in blocks of 130,800 samples (54.5 ms): on_start with its
+source redirected to a capture, then the capture thread's run on a
+threading.Thread, over the tools' 24-slot SDS capture (TEA1 and TEA2,
+auto-decrypt: frame_scan_even, tea_search; the kernel library compiled
+anew by the capture thread) and a synthetic-voice capture with REC and
+raw FM on (device synthesis: viterbi_decode, acelp_decode), each
+against device="cpu" (frames, table cells, PCM, WAVs) with no "error:"
+status; process_block's ms a block in the capture thread against the
+block's 54.5 ms, the window's slots' share of it, the time to the first
+frame; the dashboard (a stub screen) over the synthetic voice source on
+a worker thread against the CPU, a draw timed; examples, each of the
+port's examples on the card and with --device cpu, outputs and the voice
+WAV equal, each one's wall time.
+
 Every decode phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a kernel of that path that
 was never launched fails the run.
@@ -148,6 +164,8 @@ Two other modes print no result line and exit non-zero:
                                        # versions; nothing is built)
     python3 chip_smoke.py --nccl-one-rank  # the nccl one rank phase's
                                        # own process (one JSON line)
+    python3 chip_smoke.py --only ui,examples  # those phases alone after
+                                       # the build, a JSON line each
     python3 chip_smoke.py --parent DIR # each redesigned kernel whose
                                        # earlier source DIR holds
                                        # (band_extract.cu, tea.cu,
@@ -4775,6 +4793,488 @@ def phase_tools(seed: int, reps: int) -> dict:
     return res
 
 
+# -- the UI and the examples ---------------------------------------------
+
+# the conv frontend's block at 2.4 Msps (PipelineConfig.block_len rounded
+# to the granularity): 54.5 ms of signal
+UI_BLOCK = 130_800
+UI_VOICE_BLOCKS = 6
+UI_DASH_BLOCKS = 5
+UI_FRAME_KEYS = ("number", "type_name", "carrier", "burst_crc", "encrypted",
+                 "decrypted", "sds_message", "stream_symbol")
+UI_TABLES = ("frames_table", "calls_table", "groups_table", "users_table",
+             "sds_table")
+# the capture thread's signals emitted inside process_block (the Pipeline's
+# callbacks); stats_update and status_update are emitted between blocks
+UI_SIGNALS = ("frame_decoded", "spectrum_update", "voice_audio", "raw_audio")
+# each example and the hand kernels its path launches on the card.
+# wideband_scan's capture (71 ms) is shorter than one FFT block, so the
+# scanner takes the conv bank, plain torch on the card; voice_roundtrip's
+# blocks of 32,000 samples (13.3 ms) hold at most one voice slot, whose
+# channel decoding is the host's one-candidate path (V1 launches for two
+# or more)
+EXAMPLES = {"decode_capture": ("frame_scan_even",),
+            "offair_fixture": ("frame_scan_even", "tea_search"),
+            "dense_fleet": FUSED_KERNELS + ("tea_search",),
+            "wideband_scan": (),
+            "voice_roundtrip": ("frame_scan_even", "acelp_decode"),
+            "sharded_deployment": ("band_extract", "acelp_decode",
+                                   "tea_search")}
+
+
+def ui_qt():
+    """The port's ui.qt imported over tests/unit/qt_stub.py, installed as
+    PyQt6 (the GPU machine has no PyQt6; the stub's QThread.start does
+    nothing, so the capture thread's run is driven here)."""
+    import importlib
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_qt_stub", ROOT / "tests" / "unit" / "qt_stub.py")
+    stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stub)
+    stub.install()
+    sys.modules.pop("tetraear_tpu_torch.ui.qt", None)
+    qt = importlib.import_module("tetraear_tpu_torch.ui.qt")
+    if not qt.QT_AVAILABLE:
+        fail("ui: the port's ui.qt does not see the PyQt6 stub")
+    return qt
+
+
+def on_worker(fn, what: str) -> float:
+    """fn() on a threading.Thread of its own; fails if it raises or hangs.
+    Returns its wall seconds (the card synchronised after)."""
+    import threading
+    errors = []
+
+    def body():
+        try:
+            fn()
+        except BaseException as e:      # raised again by fail() below
+            errors.append(repr(e))
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=body, name=f"chip_smoke {what}")
+    worker.start()
+    worker.join(900)
+    if worker.is_alive():
+        fail(f"{what}: the worker thread did not finish in 900 s")
+    sync()
+    if errors:
+        fail(f"{what}: the worker thread raised {errors[0]}")
+    return time.perf_counter() - t0
+
+
+class BlockTimer:
+    """Pipeline.process_block wrapped while it is active: the host wall
+    time of each call (a call returns the block's frames on the host, so
+    it ends after the card's work for the block)."""
+
+    def __enter__(self):
+        from tetraear_tpu_torch import api
+        self.ms, self._real = [], api.Pipeline.process_block
+        real = self._real
+
+        def timed(pipe, block):
+            t0 = time.perf_counter()
+            out = real(pipe, block)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        api.Pipeline.process_block = timed
+        return self
+
+    def __exit__(self, *exc):
+        from tetraear_tpu_torch import api
+        api.Pipeline.process_block = self._real
+
+    def summary(self) -> dict:
+        rest = sorted(self.ms[1:]) or [float("nan")]
+        return {"blocks": len(self.ms), "first_ms": self.ms[0],
+                "median_ms": rest[len(rest) // 2],
+                "mean_ms": sum(rest) / len(rest), "max_ms": rest[-1],
+                "signal_ms": UI_BLOCK / FS_RTL * 1e3}
+
+
+def ui_tables(win) -> dict:
+    return {name: [[None if item is None else item.text() for item in row]
+                   for row in getattr(win, name)._rows]
+            for name in UI_TABLES}
+
+
+def wav_pcm(path: Path) -> list:
+    import wave
+    with wave.open(str(path)) as wf:
+        return [wf.getframerate(),
+                wf.readframes(wf.getnframes())]
+
+
+def gui_run(qt, run: str, device: str, capture: Path, d: Path, voice: bool,
+            fresh_build: bool = False) -> dict:
+    """ModernTetraGUI's START path as a user takes it: the window built
+    (on the card by default), its source (on_start opens "rtlsdr")
+    redirected to the capture, on_start run so that its own signal
+    wiring is made, then the capture thread's run on a threading.Thread
+    and its finished signal as QThread emits it.  REC and raw FM are on
+    for the voice capture.  With ``fresh_build`` the kernel library is
+    compiled anew, into a directory of its own, by whichever thread
+    first needs it (the capture thread), and the earlier one is restored
+    after.  Launch counts are set to 0 just before the thread starts and
+    read just after."""
+    import threading
+    import numpy as np
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime import sources
+    from tetraear_tpu_torch.utils.settings import SettingsManager
+    records = d / f"records_{run}"
+    records.mkdir(parents=True)
+    settings = SettingsManager(d / f"settings_{run}.json")
+    settings.set("records_dir", str(records))
+    win = qt.ModernTetraGUI(settings=settings,
+                            **({} if device == "cuda" else {"device": "cpu"}))
+    opened, real_open = [], sources.open_source
+
+    def open_capture(spec, sample_rate=FS_RTL, frequency=392.5e6,
+                     gain="auto"):
+        opened.append(spec)
+        return sources.FileIQSource(capture, sample_rate=sample_rate,
+                                    frequency=frequency)
+    saved = (ck._lib, ck.BUILD_DIR, dict(ck.build_info),
+             ck._compile_and_load)
+    built_by = []
+
+    def compile_and_load():
+        built_by.append(threading.current_thread().name)
+        return saved[3]()
+    got = {"frames": [], "status": [], "audio": [], "raw": [], "stats": 0}
+    sources.open_source = open_capture
+    try:
+        if fresh_build:
+            ck._lib, ck.BUILD_DIR = None, d / "kernels"
+            ck._compile_and_load = compile_and_load
+        if voice:
+            win.rawfm_chk.setChecked(True)
+            win.rec_btn.setChecked(True)
+        win.on_start()
+        th = win.thread
+        if opened != ["rtlsdr"] or th is None:
+            fail(f"ui gui {run}: on_start opened {opened}")
+        t_first = []
+
+        def frame(f):
+            if not got["frames"]:
+                t_first.append(time.perf_counter())
+            got["frames"].append(tuple(f.get(k) for k in UI_FRAME_KEYS))
+
+        def stats(_s):
+            got["stats"] += 1
+        th.frame_decoded.connect(frame)
+        th.status_update.connect(got["status"].append)
+        th.voice_audio.connect(
+            lambda a: got["audio"].append(np.asarray(a).copy()))
+        th.raw_audio.connect(
+            lambda a: got["raw"].append(np.asarray(a).copy()))
+        th.stats_update.connect(stats)
+        # the stub's signals call their slots in the emitting thread, so
+        # the window's slots (tables, waterfall, recorders) run inside
+        # process_block here; each signal's emits are timed apart (a
+        # Pipeline takes the bound emit when the capture thread makes it)
+        slot_ms = {}
+        for sig_name in UI_SIGNALS:
+            sig = getattr(th, sig_name)
+
+            def emit(*a, real=sig.emit, sig_name=sig_name):
+                t0 = time.perf_counter()
+                real(*a)
+                slot_ms[sig_name] = (slot_ms.get(sig_name, 0.0)
+                                     + (time.perf_counter() - t0) * 1e3)
+            sig.emit = emit
+        ck.reset_launches()
+        with BlockTimer() as timer:
+            t0 = time.perf_counter()
+            wall = on_worker(th.run, f"ui gui {run}")
+        got["launches"] = dict(ck.launches)
+        th.finished.emit()
+        if win.thread is not None or win.status.text() != "stopped":
+            fail(f"ui gui {run}: the window did not see its thread finish")
+        if voice:
+            win.rec_btn.setChecked(False)
+        if fresh_build:
+            got["build_s"] = ck.build_info.get("seconds")
+    finally:
+        sources.open_source = real_open
+        if fresh_build:
+            ck._lib, ck.BUILD_DIR = saved[0], saved[1]
+            ck.build_info.clear()
+            ck.build_info.update(saved[2])
+            ck._compile_and_load = saved[3]
+    got.update(
+        slot_ms=slot_ms, timer_ms=list(timer.ms),
+        tables=ui_tables(win), wall_s=wall, blocks=timer.summary(),
+        first_frame_s=(t_first[0] - t0) if t_first else None,
+        rec=[wav_pcm(p) for p in sorted(records.glob("rec_*.wav"))],
+        rawfm=[wav_pcm(p) for p in sorted(records.glob("rawfm_*.wav"))],
+        built_by=built_by)
+    errors = [s for s in got["status"] if str(s).startswith("error:")]
+    if errors:
+        fail(f"ui gui {run}: the capture thread reported {errors}")
+    if fresh_build and DEV != "cpu" and (
+            len(built_by) != 1 or not built_by[0].startswith("chip_smoke")):
+        fail(f"ui gui {run}: the kernel library was built by {built_by}, "
+             f"not once by the capture thread")
+    return got
+
+
+def same_pcm(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.tobytes() == y.tobytes()
+        for x, y in zip(a, b))
+
+
+def gui_pair(qt, name: str, capture: Path, d: Path, voice: bool,
+             need: tuple, fresh_build: bool = False) -> dict:
+    """gui_run on the card and with device="cpu"; fails unless frames,
+    table cells, the PCM given to recorder.feed and raw_audio, and the
+    REC / raw FM WAVs' PCM are equal, and each kernel in ``need`` was
+    launched on the card."""
+    card = gui_run(qt, f"{name}_card", DEV, capture, d, voice, fresh_build)
+    cpu = gui_run(qt, f"{name}_cpu", "cpu", capture, d, voice)
+    what = f"ui gui {name}"
+    if not card["frames"] or card["frames"] != cpu["frames"]:
+        fail(f"{what}: the card's {len(card['frames'])} frames differ from "
+             f"the CPU run's {len(cpu['frames'])}")
+    if card["tables"] != cpu["tables"]:
+        diff = [t for t in UI_TABLES if card["tables"][t] != cpu["tables"][t]]
+        fail(f"{what}: table cells differ from the CPU run's in {diff}")
+    for k in ("audio", "raw"):
+        if not same_pcm(card[k], cpu[k]):
+            fail(f"{what}: {k} PCM differs from the CPU run's "
+                 f"({len(card[k])} / {len(cpu[k])} chunks)")
+    if card["rec"] != cpu["rec"] or card["rawfm"] != cpu["rawfm"]:
+        fail(f"{what}: the REC / raw FM WAVs' PCM differs from the CPU run's")
+    if voice and not (card["audio"] and card["raw"] and card["rec"]
+                      and card["rawfm"]):
+        fail(f"{what}: no voice PCM, raw FM audio or WAV")
+    need_launched(what, card["launches"], need)
+    b = card["blocks"]
+    used = {k: v for k, v in card["launches"].items() if v}
+    slots = {k: v / max(b["blocks"], 1) for k, v in card["slot_ms"].items()}
+    say(f"{what}: the window's slots inside process_block, ms a block: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in slots.items())
+        + f" ({sum(slots.values()):.2f} of process_block's "
+        f"{sum(card['timer_ms']) / max(b['blocks'], 1):.2f}, the first "
+        f"block included; CPU run "
+        + ", ".join(f"{k} {v / max(b['blocks'], 1):.2f}"
+                    for k, v in cpu["slot_ms"].items()) + ")")
+    rows = ", ".join(f"{t[:-6]} {len(card['tables'][t])}" for t in UI_TABLES)
+    say(f"{what}: {len(card['frames'])} frames, table cells ({rows} "
+        f"rows), {sum(len(a) for a in card['audio'])} voice samples, "
+        f"{sum(len(a) for a in card['raw'])} raw FM samples equal to the "
+        f"CPU run; no error status; process_block in the capture thread "
+        f"{b['median_ms']:.2f} ms median ({b['mean_ms']:.2f} mean, "
+        f"{b['max_ms']:.2f} max, first {b['first_ms']:.1f}) a block of "
+        f"{b['signal_ms']:.1f} ms signal over {b['blocks']} blocks; first "
+        f"frame {card['first_frame_s']:.2f} s after the thread started"
+        + (f" (the kernel library built in the capture thread, "
+           f"{card['build_s']:.1f} s)" if card.get("build_s") else "")
+        + f"; CPU run {cpu['blocks']['median_ms']:.1f} ms a block; "
+        f"launches {used}")
+    return {"frames": len(card["frames"]), "blocks": b,
+            "slot_ms_per_block": slots,
+            "cpu_blocks": cpu["blocks"], "first_frame_s":
+            card["first_frame_s"], "wall_s": card["wall_s"],
+            "cpu_wall_s": cpu["wall_s"], "build_in_thread_s":
+            card.get("build_s"), "built_by": card["built_by"],
+            "launches": card["launches"]}
+
+
+def dashboard_run(device: str, n_blocks: int) -> dict:
+    """The curses dashboard with a stub screen (tests/unit/test_ui.py's)
+    over the synthetic voice source, its Pipeline built and run on a
+    worker thread; then 20 draws timed with the 15 FPS cap lifted."""
+    import numpy as np
+    from tetraear_tpu_torch.api import Pipeline, PipelineConfig
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.runtime.sources import open_source
+    from tetraear_tpu_torch.ui.dashboard import Dashboard
+
+    class StubScr:
+        def nodelay(self, *_):
+            pass
+
+        def getmaxyx(self):
+            return (24, 80)
+
+        def erase(self):
+            pass
+
+        def addnstr(self, *a, **k):
+            pass
+
+        def refresh(self):
+            pass
+
+        def getch(self):
+            return -1
+    out = {"audio": []}
+
+    def body():
+        pipe = Pipeline(PipelineConfig(sample_rate=FS_RTL, detect_gate=False,
+                                       device=device))
+        pipe.on_audio = lambda a: out["audio"].append(np.asarray(a).copy())
+        src = open_source("synthetic-voice", sample_rate=FS_RTL)
+        dash = Dashboard(StubScr(), pipe, src, "chip_smoke")
+        dash.last_draw = -1e9
+        dash.run(max_blocks=n_blocks)
+        out["dash"], out["pipe"] = dash, pipe
+    ck.reset_launches()
+    with BlockTimer() as timer:
+        wall = on_worker(body, f"ui dashboard on {device}")
+    launches = dict(ck.launches)
+    dash = out["dash"]
+    draws = []
+    for _ in range(20):
+        dash.last_draw = -1e9
+        t0 = time.perf_counter()
+        dash.draw()
+        draws.append((time.perf_counter() - t0) * 1e3)
+    return {"frames": [tuple(f.get(k) for k in UI_FRAME_KEYS)
+                       for f in dash.frames],
+            "row": dash._spectrum_row(40), "audio": out["audio"],
+            "voice_frames": out["pipe"].stats.voice_frames,
+            "launches": launches, "wall_s": wall, "blocks": timer.summary(),
+            "draw_ms": sorted(draws)[len(draws) // 2]}
+
+
+def phase_ui(seed: int) -> dict:
+    """The UI on the card at its users' size (2.4 Msps, blocks of 130,800
+    samples): the Qt window's START path with its capture thread on a
+    worker thread, over (a) the tools' 24-slot SDS capture (TEA1 and TEA2
+    in turn under common keys, auto-decrypt on: frame_scan_even,
+    tea_search; the kernel library built anew in that thread) and (b) a
+    finite capture of the synthetic voice source (device synthesis on by
+    default: viterbi_decode, acelp_decode), each against device="cpu";
+    then the dashboard over the synthetic voice source on a worker
+    thread, against the CPU."""
+    import tempfile
+    from tetraear_tpu_torch.runtime.sources import open_source, write_capture
+    qt = ui_qt()
+    res = {}
+    env_before = os.environ.get("TETRAEAR_TPU_DATA_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ui_") as tmp:
+        d = Path(tmp)
+        os.environ["TETRAEAR_TPU_DATA_DIR"] = str(d / "data")
+        try:
+            sds = d / "sds.cfile"
+            tools_capture(sds, seed, 8 if REHEARSE else TOOL_SLOTS)
+            voice = d / "voice.cfile"
+            n_voice = 2 if REHEARSE else UI_VOICE_BLOCKS
+            with open_source("synthetic-voice", sample_rate=FS_RTL) as src:
+                write_capture(voice, src.read_samples(n_voice * UI_BLOCK))
+            res["gui_sds"] = gui_pair(
+                qt, "sds", sds, d, False,
+                ("frame_scan_even", "tea_search"), fresh_build=not REHEARSE)
+            res["gui_voice"] = gui_pair(
+                qt, "voice", voice, d, True,
+                ("frame_scan_even", "viterbi_decode", "acelp_decode"))
+        finally:
+            if env_before is None:
+                os.environ.pop("TETRAEAR_TPU_DATA_DIR", None)
+            else:
+                os.environ["TETRAEAR_TPU_DATA_DIR"] = env_before
+    n = 2 if REHEARSE else UI_DASH_BLOCKS
+    card, cpu = dashboard_run(DEV, n), dashboard_run("cpu", n)
+    if (not card["frames"] or card["frames"] != cpu["frames"]
+            or card["row"] != cpu["row"]
+            or not same_pcm(card["audio"], cpu["audio"])
+            or card["voice_frames"] != cpu["voice_frames"]):
+        fail(f"ui dashboard: the card's frames ({len(card['frames'])}), "
+             f"spectrum row or voice PCM ({card['voice_frames']} voice "
+             f"frames) differ from the CPU run's ({len(cpu['frames'])}, "
+             f"{cpu['voice_frames']})")
+    need_launched("ui dashboard", card["launches"],
+                  ("frame_scan_even", "viterbi_decode", "acelp_decode"))
+    b = card["blocks"]
+    say(f"ui dashboard: {n} blocks of the synthetic voice source on a "
+        f"worker thread, {len(card['frames'])} frames, "
+        f"{card['voice_frames']} voice frames, spectrum row and PCM equal "
+        f"to the CPU run; process_block {b['median_ms']:.2f} ms median "
+        f"(first {b['first_ms']:.1f}) a block of {b['signal_ms']:.1f} ms; "
+        f"a draw {card['draw_ms']:.3f} ms; launches "
+        f"{ {k: v for k, v in card['launches'].items() if v} }")
+    res["dashboard"] = {k: card[k] for k in ("launches", "wall_s", "blocks",
+                                             "draw_ms", "voice_frames")}
+    res["dashboard"]["frames"] = len(card["frames"])
+    res["dashboard"]["cpu_blocks"] = cpu["blocks"]
+    return res
+
+
+def example_run(name: str, device: str, out_dir: Path) -> tuple:
+    """An example's main as ``python -m`` calls it, on the card (no
+    --device) or with --device cpu; (rc, stdout, launches, seconds)."""
+    import contextlib
+    import importlib
+    import io
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    mod = importlib.import_module(f"tetraear_tpu_torch.examples.{name}")
+    argv = [str(out_dir / "roundtrip.wav")] if name == "voice_roundtrip" \
+        else []
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    buf = io.StringIO()
+    if device != "cpu":
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    sync()
+    seconds = time.perf_counter() - t0
+    if device != "cpu" and torch.cuda.max_memory_allocated() == 0:
+        fail(f"examples {name}: nothing was allocated on the card")
+    # the sharded example names its device
+    out = re.sub(r"mesh entries on \w+", "mesh entries on <device>",
+                 buf.getvalue())
+    return rc, out, dict(ck.launches), seconds
+
+
+def phase_examples() -> dict:
+    """Each of the port's examples on the card and with --device cpu:
+    both exit 0 with the same output (decoded lines, per-carrier counts
+    and texts, decryptions, scan table, sync hits, scores), the voice
+    round trip's WAV PCM equal; each card run launches kernels."""
+    import tempfile
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        for name in EXAMPLES:
+            runs = {}
+            for run, device in (("card", DEV), ("cpu", "cpu")):
+                out_dir = Path(tmp) / f"{name}_{run}"
+                out_dir.mkdir()
+                runs[run] = example_run(name, device, out_dir)
+                if runs[run][0] != 0:
+                    fail(f"examples {name} on {device}: exit "
+                         f"{runs[run][0]}:\n{runs[run][1][-1500:]}")
+            if runs["card"][1] != runs["cpu"][1]:
+                fail(f"examples {name}: the card's output differs from the "
+                     f"CPU run's:\n{runs['card'][1][-1500:]}\n--- cpu ---\n"
+                     f"{runs['cpu'][1][-1500:]}")
+            if name == "voice_roundtrip":
+                pcm = [wav_pcm(Path(tmp) / f"{name}_{run}" / "roundtrip.wav")
+                       for run in ("card", "cpu")]
+                if pcm[0] != pcm[1] or len(pcm[0][1]) < 2 * 2880:
+                    fail("examples voice_roundtrip: the card's WAV differs "
+                         "from the CPU run's")
+            launches = {k: v for k, v in runs["card"][2].items() if v}
+            need_launched(f"examples {name}", runs["card"][2],
+                          EXAMPLES[name])
+            last = runs["card"][1].strip().splitlines()[-1]
+            say(f"examples {name}: equal to the CPU run, {runs['card'][3]:.2f}"
+                f" s on the card ({runs['cpu'][3]:.2f} s on the CPU); "
+                f"launches {launches}; last line: {last[:120]}")
+            res[name] = {"card_s": runs["card"][3], "cpu_s": runs["cpu"][3],
+                         "launches": runs["card"][2]}
+    return res
+
+
 def phase_profiling(card: str, chains: dict, sp: dict, c: int,
                     c_big: int, nfft: int | None) -> dict:
     """runtime/profiling on the card: measure_hbm_gbs at 1 GiB (and 4
@@ -5097,6 +5597,34 @@ def main_parent(parent: Path) -> int:
     return 1
 
 
+def ui_launches(ui: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in each run of the ui phase."""
+    return {r: res["launches"].get(name, 0) for r, res in ui.items()}
+
+
+def main_only(phases: list) -> int:
+    """--only ui,examples: the named phases alone (after the build), each
+    result line printed; no result line."""
+    known = {"ui": lambda: phase_ui(seed=71), "examples": phase_examples}
+    bad = [p for p in phases if p not in known]
+    if bad:
+        print(f"chip_smoke.py --only: unknown phases {bad}; known "
+              f"{sorted(known)}", file=sys.stderr)
+        return 2
+    for p in phases:
+        t0 = time.time()
+        out = known[p]()
+        say(json.dumps({"phase": p, "seconds": time.time() - t0,
+                        "result": out}, default=str))
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith("jax.")
+                 or m == "tetraear_tpu" or m.startswith("tetraear_tpu."))
+    if bad:
+        fail(f"modules of JAX or of the JAX package were imported: {bad}")
+    say("--only: no result line")
+    return 5
+
+
 def main(argv: list) -> int:
     global DEV, REHEARSE, SM_CLOCK_HZ
     if not (ROOT / "tetraear_tpu_torch" / "dsp" / "csrc").is_dir():
@@ -5167,6 +5695,8 @@ def main(argv: list) -> int:
         return main_parent(Path(argv[argv.index("--parent") + 1]).resolve())
     if "--nccl-one-rank" in argv:
         return nccl_child()
+    if "--only" in argv:
+        return main_only(argv[argv.index("--only") + 1].split(","))
 
     # sizes: the real ones, or a tiny stand-in for each in the rehearsal
     # (C=8, nfft overrides; the fleet stand-in stays fused-eligible)
@@ -5268,6 +5798,11 @@ def main(argv: list) -> int:
     prof = phase_profiling(card, chains, sp, c_fleet, c_bench, nfft_fleet)
     say(f"[{time.time() - t_start:.0f} s] tools and profiling phases done "
         f"in {time.time() - t_tools:.0f} s")
+    t_ui = time.time()
+    ui = phase_ui(seed=71)
+    examples = phase_examples()
+    say(f"[{time.time() - t_start:.0f} s] ui and examples phases done in "
+        f"{time.time() - t_ui:.0f} s")
 
     # multi-device sharding (virtual meshes of the card) and the scanners;
     # the rehearsal's stand-ins: 2.304 and 10.24 MHz at C=8
@@ -5317,14 +5852,17 @@ def main(argv: list) -> int:
                 t: tools["launches"][t]["tea_search"]
                 for t in ("continuous_capture", "decrypt_capture",
                           "bruteforce_keys")}
+            entry["launches_ui"] = ui_launches(ui, name)
             kernels.append(entry)
             continue
         if name == "viterbi_decode":
-            kernels.append(viterbi_entry(vit, vit_floor, vit_path,
-                                         voice_fleet))
+            kernels.append(dict(viterbi_entry(vit, vit_floor, vit_path,
+                                              voice_fleet),
+                                launches_ui=ui_launches(ui, name)))
             continue
         if name == "acelp_decode":
-            kernels.append(acelp_entry(sp, voice_dev))
+            kernels.append(dict(acelp_entry(sp, voice_dev),
+                                launches_ui=ui_launches(ui, name)))
             continue
         k1, k2 = kern[name], kern_big[name]
         if main_path[name][name] == 0:
@@ -5353,7 +5891,8 @@ def main(argv: list) -> int:
                if name in grids else {}),
             **({"launches_tools": {
                 t: tools["launches"][t][name]
-                for t in ("continuous_capture", "decrypt_capture")}}
+                for t in ("continuous_capture", "decrypt_capture")},
+                "launches_ui": ui_launches(ui, name)}
                if name == "frame_scan_even" else {}),
             **({"unspliced_ms": k1["unspliced_ms"],
                 "unspliced_plain_ms": k1["unspliced_plain_ms"],
@@ -5388,8 +5927,15 @@ def main(argv: list) -> int:
             "nccl_one_rank": counts_nccl,
             "voice_mesh": counts_vmesh, "crypto_mesh": counts_cmesh,
             "scan_wideband": counts_scan,
-            **{f"tools_{t}": c for t, c in tools["launches"].items()}},
+            **{f"tools_{t}": c for t, c in tools["launches"].items()},
+            **{f"ui_{r}": ui[r]["launches"] for r in ui},
+            **{f"examples_{e}": r["launches"]
+               for e, r in examples.items()}},
         "tools": {k: v for k, v in tools.items() if k != "launches"},
+        "ui": {r: {k: v for k, v in res.items() if k != "launches"}
+               for r, res in ui.items()},
+        "examples": {e: {k: v for k, v in r.items() if k != "launches"}
+                     for e, r in examples.items()},
         "profiling": prof,
         "sharding": {
             "conv": conv_sh, "fft_fleet": sh_fleet,

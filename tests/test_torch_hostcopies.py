@@ -92,6 +92,18 @@ COPIES = {
     # the port's archive: its package and chip_smoke.py, no build/
     # directory or shared library, the port's two libraries built
     "tools/build_release.py": ("build", "<module statements>"),
+    "ui/__init__.py": (),
+    "ui/spectrum.py": (),
+    "ui/filters.py": (),
+    "ui/status.py": (),
+    "ui/recording.py": (),
+    # --device (default: the card) goes to PipelineConfig.device
+    "ui/dashboard.py": ("main",),
+    # the window keeps its device (raising without a card unless it is
+    # "cpu"), hands it to the capture thread's PipelineConfig, and main
+    # takes --device; the capture thread and the dialogs are unchanged
+    "ui/qt.py": ("ModernTetraGUI.__init__", "ModernTetraGUI.on_start",
+                 "main"),
 }
 
 # string literals the copies word otherwise (original -> copy)
@@ -143,15 +155,29 @@ def _strip_docstrings(tree):
     return tree
 
 
+def _flatten(body):
+    """Module-level statements with the bodies of module-level ``if``
+    blocks spliced in, each ``if``'s test kept as a statement: the Qt
+    window's classes are defined under ``if QT_AVAILABLE:``."""
+    for node in body:
+        if isinstance(node, ast.If):
+            yield ast.Expr(node.test)
+            yield from _flatten(node.body)
+            yield from _flatten(node.orelse)
+        else:
+            yield node
+
+
 def _definitions(path: Path) -> dict:
     """{qualified name: ast dump} of a module's top-level statements and
-    its classes' methods, package name normalised, docstrings dropped."""
+    its classes' methods (those under a module-level ``if`` too), package
+    name normalised, docstrings dropped."""
     src = path.read_text().replace("tetraear_tpu_torch", "tetraear_tpu")
     for old, new in REWORDED.items():
         src = src.replace(old, new)
     tree = _strip_docstrings(ast.parse(src))
     out, other = {}, []
-    for node in tree.body:
+    for node in _flatten(tree.body):
         if isinstance(node, ast.ClassDef):
             rest = []
             for sub in node.body:
@@ -240,7 +266,16 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
         " 'tetraear_tpu_torch.tools.verify_codec',"
         " 'tetraear_tpu_torch.tools.build_release',"
         " 'tetraear_tpu_torch.tools.generate_common_keys',"
-        " 'tetraear_tpu_torch.tools.analyze_text'}\n"
+        " 'tetraear_tpu_torch.tools.analyze_text',"
+        " 'tetraear_tpu_torch.ui.spectrum', 'tetraear_tpu_torch.ui.filters',"
+        " 'tetraear_tpu_torch.ui.status', 'tetraear_tpu_torch.ui.recording',"
+        " 'tetraear_tpu_torch.ui.dashboard', 'tetraear_tpu_torch.ui.qt',"
+        " 'tetraear_tpu_torch.examples.decode_capture',"
+        " 'tetraear_tpu_torch.examples.offair_fixture',"
+        " 'tetraear_tpu_torch.examples.dense_fleet',"
+        " 'tetraear_tpu_torch.examples.wideband_scan',"
+        " 'tetraear_tpu_torch.examples.voice_roundtrip',"
+        " 'tetraear_tpu_torch.examples.sharded_deployment'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print('CLEAN', len(names))\n")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
@@ -295,7 +330,9 @@ def test_resolve_cpu_only_when_asked():
                                    "decrypt_capture", "continuous_capture",
                                    "listen_clear", "auto_capture",
                                    "profiler", "measure_hbm",
-                                   "measured_hbm", "tool_cli"])
+                                   "measured_hbm", "tool_cli",
+                                   "dashboard", "qt_gui",
+                                   "example_decode_capture"])
 def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
@@ -322,6 +359,21 @@ def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
     import numpy as np
     monkeypatch.delenv("TETRAEAR_MEASURED_GBS", raising=False)
     out = str(tmp_path / "out")
+
+    def qt_gui():
+        # the window over the PyQt6 stub, imported afresh (sys.modules
+        # restored by monkeypatch)
+        for name in ("PyQt6", "PyQt6.QtCore", "PyQt6.QtGui",
+                     "PyQt6.QtWidgets", "tetraear_tpu_torch.ui.qt"):
+            monkeypatch.setitem(sys.modules, name, None)
+            del sys.modules[name]
+        monkeypatch.syspath_prepend(str(REPO))
+        monkeypatch.setenv("TETRAEAR_TPU_DATA_DIR", str(tmp_path))
+        from tests.unit import qt_stub
+        qt_stub.install()
+        qt = importlib.import_module("tetraear_tpu_torch.ui.qt")
+        assert qt.QT_AVAILABLE
+        qt.ModernTetraGUI().on_start()
 
     def tool(name, *argv):
         return lambda: importlib.import_module(
@@ -369,6 +421,11 @@ def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
         "measured_hbm": lambda: profiling.measured_hbm_gbs(tmp_path, mb=1),
         "tool_cli": lambda: main(["continuous-capture", "--max-blocks", "1",
                                   "-o", out]),
+        "dashboard": lambda: importlib.import_module(
+            "tetraear_tpu_torch.ui.dashboard").main(["--max-blocks", "1"]),
+        "qt_gui": qt_gui,
+        "example_decode_capture": lambda: importlib.import_module(
+            "tetraear_tpu_torch.examples.decode_capture").main([]),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()

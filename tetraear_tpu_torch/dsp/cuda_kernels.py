@@ -52,6 +52,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -100,6 +101,7 @@ def _flags(name: str) -> tuple:
                                                      "-fmad=false")
 
 _lib = None
+_build_lock = threading.Lock()
 build_info: dict = {}
 
 
@@ -115,10 +117,22 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library.
+
+    Threads of one process share one build: the first caller compiles
+    and the others wait for it (the GUI's capture thread makes the first
+    call off the main thread, and the object files are named by process
+    only)."""
     global _lib
     if _lib is not None:
         return _lib
+    with _build_lock:
+        if _lib is None:
+            _lib = _compile_and_load()
+    return _lib
+
+
+def _compile_and_load() -> ctypes.CDLL:
     h = hashlib.sha256()
     for name in _SOURCES:
         h.update(" ".join((name, *_flags(name))).encode())
@@ -180,7 +194,6 @@ def build() -> ctypes.CDLL:
                lib.tt_synth_chain):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)
-    _lib = lib
     return lib
 
 
