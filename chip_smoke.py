@@ -143,6 +143,19 @@ a worker thread against the CPU, a draw timed; examples, each of the
 port's examples on the card and with --device cpu, outputs and the voice
 WAV equal, each one's wall time.
 
+The bench (tetraear_tpu_torch/bench.py): ``python -m tetraear_tpu_torch
+bench`` in its own process, as its users run it, at C=1024 and 10240
+(both modes), the default C=20480 (both modes, no environment set),
+C=40960 (e2e; the nfft cap runs half-size blocks of 2^26) and C=1024
+with BENCH_NO_FUSED=1 (the classic chain): each last line parses, has
+no "degraded", rt_factor > 0 and the expected e2e variant; then in this
+process each chain at C=1024 (two steps) and the fused chain at C=20480
+and C=40960 (one step) on the kernels and again on the plain versions
+(cuda_kernels._route answering "cpu"), nhit, nok and pacc equal and the
+voice chain's PCM bit-equal, the kernel launches a step of each chain,
+and the Profiler's busy share of the e2e and voice chains at C=1024 and
+C=20480.
+
 Every decode phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a kernel of that path that
 was never launched fails the run.
@@ -164,8 +177,9 @@ Two other modes print no result line and exit non-zero:
                                        # versions; nothing is built)
     python3 chip_smoke.py --nccl-one-rank  # the nccl one rank phase's
                                        # own process (one JSON line)
-    python3 chip_smoke.py --only ui,examples  # those phases alone after
-                                       # the build, a JSON line each
+    python3 chip_smoke.py --only ui,examples,bench  # those phases
+                                       # alone after the build, a JSON
+                                       # line each
     python3 chip_smoke.py --parent DIR # each redesigned kernel whose
                                        # earlier source DIR holds
                                        # (band_extract.cu, tea.cu,
@@ -175,6 +189,7 @@ Two other modes print no result line and exit non-zero:
                                        # call, one JSON line a case
 """
 
+import contextlib
 import json
 import math
 import os
@@ -5275,6 +5290,339 @@ def phase_examples() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# bench: the port's benchmark (tetraear_tpu_torch/bench.py) as its users
+# run it, and its chains on the kernels against the plain versions
+# ---------------------------------------------------------------------------
+
+# (name, environment of `python -m tetraear_tpu_torch bench`, e2e
+# variant); the default run sets nothing: C=20480, both modes
+# C=1024's steps take about 2 ms (e2e) to 4 ms (voice): 500 of them make a
+# timed window of a second or more, where 20 made one of 40-90 ms
+BENCH_RUNS = (
+    ("c1024", {"BENCH_CARRIERS": "1024", "BENCH_STEPS": "500"}, "fused"),
+    ("c10240", {"BENCH_CARRIERS": "10240"}, "fused"),
+    ("c20480", {}, "fused"),
+    ("c40960", {"BENCH_CARRIERS": "40960", "BENCH_MODE": "e2e"}, "fused"),
+    ("c1024_classic", {"BENCH_CARRIERS": "1024", "BENCH_STEPS": "500",
+                       "BENCH_MODE": "e2e", "BENCH_NO_FUSED": "1"},
+     "classic"),
+)
+BENCH_VOICE_KERNELS = ("viterbi_decode", "acelp_decode")
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every kernel wrapper runs its plain PyTorch version, on the card's
+    tensors too: cuda_kernels._route, which each wrapper asks, answers
+    "cpu" after its own device checks."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    real = ck._route
+
+    def route(*tensors):
+        real(*tensors)
+        return "cpu"
+
+    ck._route = route
+    try:
+        yield
+    finally:
+        ck._route = real
+
+
+def bench_run(name: str, env: dict, variant: str, card: str) -> dict:
+    """``python -m tetraear_tpu_torch bench`` with ``env`` (every other
+    BENCH_* unset) in its own process: exit 0, a last line that parses,
+    no ``degraded``, rt_factor > 0 and the expected e2e variant."""
+    full = {k: v for k, v in os.environ.items()
+            if not k.startswith("BENCH_")}
+    full.update(env)
+    if DEV == "cpu":
+        full.update(BENCH_CARRIERS="8", BENCH_STEPS="2")
+    argv = [sys.executable, "-m", "tetraear_tpu_torch", "bench"]
+    if DEV == "cpu":
+        argv += ["--device", "cpu"]
+    t0 = time.time()
+    r = subprocess.run(argv, cwd=ROOT, env=full, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.time() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        fail(f"bench {name}: exit {r.returncode}\n{r.stdout[-1500:]}\n"
+             f"{r.stderr[-3000:]}")
+    try:
+        line = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"bench {name}: the last line does not parse: {lines[-1]!r}")
+    if "degraded" in line:
+        fail(f"bench {name}: degraded: {line['degraded']}")
+    if not line.get("rt_factor", 0) > 0:
+        fail(f"bench {name}: rt_factor {line.get('rt_factor')}")
+    if line.get("e2e_variant") != variant:
+        fail(f"bench {name}: e2e_variant {line.get('e2e_variant')}, "
+             f"expected {variant}")
+    err = [s for s in r.stderr.splitlines() if s.startswith("# backend=")]
+    say(f"bench {name} ({card}; env {env or 'none'}, BENCH_STEPS "
+        f"{full.get('BENCH_STEPS', '20')}): {wall:.1f} s; {lines[-1]}")
+    if err:
+        say(f"  {err[-1]}")
+    return {"env": env, "line": line, "wall_s": wall,
+            "summary": err[-1] if err else None}
+
+
+def bench_chains(c: int, steps: int, chains: tuple) -> dict:
+    """The bench's chains at C = c on its noise block, ``steps`` steps on
+    the kernels and again on the plain versions: nhit, nok and pacc
+    equal, the voice chain's last PCM bit-equal, no launch on the plain
+    route; launches a step of each chain on the kernels.  The voice
+    chain's kernels are then held one by one on the same inputs
+    (bench_stages)."""
+    import torch
+    from tetraear_tpu_torch import bench
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp.backhalf import TAILBITS, try_fused
+    from tetraear_tpu_torch.voice import speech
+    bank, _ = bench.make_bank(c, device=DEV)
+    fused, reason = try_fused(bank, DEV)
+    if fused is None:
+        fail(f"bench C={c}: the fused path refused the bank ({reason})")
+    x_r, x_p = bench.noise_block(bank.block_len, DEV)
+    runs = {
+        "e2e": lambda: bench.chain_e2e_fused(fused, x_p, fused.init_state(),
+                                             steps),
+        "classic": lambda: bench.chain_e2e(
+            bank, x_r, bank.init_state(DEV),
+            torch.zeros((c, TAILBITS), dtype=torch.uint8, device=DEV),
+            steps),
+        "demod": lambda: bench.chain_demod(bank, x_r, bank.init_state(DEV),
+                                           steps),
+        "voice": lambda: bench.chain_voice(
+            fused, x_p, fused.init_state(), speech.init_state(c, DEV),
+            steps),
+    }
+    out = {}
+    for name in chains:
+        ck.reset_launches()
+        got = runs[name]()
+        sync()
+        launches = {k: v / steps for k, v in ck.launches.items() if v}
+        with plain_route():
+            ck.reset_launches()
+            want = runs[name]()
+            sync()
+            if any(ck.launches.values()):
+                fail(f"bench C={c} {name}: the plain route launched "
+                     f"{ {k: v for k, v in ck.launches.items() if v} }")
+        keys = [k for k in ("nhit", "nok", "pacc") if k in got]
+        vals = {k: (int(got[k].item()), int(want[k].item())) for k in keys}
+        if name == "demod":
+            vals["tails"] = (got["tails"].cpu().tolist(),
+                             want["tails"].cpu().tolist())
+        bad = {k: v for k, v in vals.items() if v[0] != v[1]}
+        if bad:
+            fail(f"bench C={c} {name}: kernels differ from the plain "
+                 f"versions: {bad}")
+        if name == "voice" and not torch.equal(got["pcm"], want["pcm"]):
+            n = int((got["pcm"] != want["pcm"]).sum().item())
+            fail(f"bench C={c} voice: PCM differs from the plain versions' "
+                 f"at {n} samples")
+        shown = {k: v[0] for k, v in vals.items() if k != "tails"}
+        if name == "voice":
+            # upstream float differences within fft2p's and band_synth's
+            # tolerances reach the rounded soft bits; shown, not judged
+            shown["soft_bits_differing"] = int(
+                (got["soft_batch"] != want["soft_batch"]).sum().item())
+        say(f"bench C={c} {name}: {steps} steps on the kernels equal to the "
+            f"plain versions {shown}; launches a step {launches}")
+        out[name] = {"counters": shown, "launches_per_step": launches}
+        del got, want
+        if name == "voice":
+            out[name]["stages"] = bench_stages(fused, x_p)
+    del bank, fused, x_r, x_p, runs
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_stages(fused, x_p) -> dict:
+    """The voice chain's first step on the bench's noise block, each
+    kernel on the same inputs as its plain version, with phase_kernels'
+    tolerances: fft2p on the block's window (1e-4 of the RMS),
+    band_synth on its planes (y 1e-5 of the RMS, the phasor 2e-5 of the
+    band power), fused_backhalf on the glue's arguments (corr, crc_err
+    and the bit tail exact, the soft planes and the rest 1e-6),
+    viterbi_decode on the step's (2C, 432) soft batch and acelp_decode on
+    its (C, 4) frames from the initial decoder state, and both again at
+    the same shapes on the speech phases' inputs (bit-equal)."""
+    import torch
+    from tetraear_tpu_torch import bench
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    from tetraear_tpu_torch.dsp.backhalf import TWO_PI
+    from tetraear_tpu_torch.voice import speech, viterbi
+    c = fused.bank.n_carriers
+    ch = fused.ch
+    state = fused.init_state()
+    cst = state["bank"]["channelizer"]
+    res = {}
+
+    def check(name, err, tol):
+        res[name] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            fail(f"bench C={c} voice stages: {name} differs from its plain "
+                 f"version on the same inputs by {err:.3e} (tol {tol:.3e})")
+
+    args1 = fused.fft2p_args(x_p, cst)
+    planes = ck.fft2p_planes_spliced(*args1)
+    err, rms = max_err(planes, ck.fft2p_plain(*args1))
+    check("fft2p", err, 1e-4 * rms)
+    args2 = (planes, fused.h1_planes, fused.row_start, fused.d_shift,
+             fused.m1c, fused.m2re, fused.m2im, fused.twre, fused.twim,
+             ch.synth_rows, ch.drop)
+    y, ph = ck.band_synth(*args2)
+    y_p, ph_p = ck.band_synth_plain(*args2)
+    err, rms = max_err(y, y_p)
+    check("band_synth y", err, 1e-5 * rms)
+    band_power = y_p.double().pow(2).sum(dim=(1, 2, 3)).max().item()
+    check("band_synth phasor", max_err(ph, ph_p)[0], 2e-5 * band_power)
+    del planes, args1, args2, y_p, ph_p
+    ang = cst["cycles"] * TWO_PI / float(ch.nfft)
+    g = fused.glue(ph, (torch.cos(ang), -torch.sin(ang)), state)
+    args3 = fused.backhalf_args(y, g, state)
+    out_k = ck.fused_backhalf(*args3)
+    out_p = ck.fused_backhalf_plain(*args3, ck.z_rows_for(fused.p))
+    for name, a, b in zip(("corr", "err", "soft", "bt2", "last", "misc"),
+                          out_k, out_p):
+        check(f"fused_backhalf {name}", max_err(a, b)[0],
+              0.0 if name in ("corr", "err", "bt2") else 1e-6)
+    del y, args3, out_p
+    def v1(sb, what):
+        ordered, bfi = viterbi.decode(sb)
+        o_p, b_p = viterbi.decode_plain(sb)
+        if not (torch.equal(ordered, o_p) and torch.equal(bfi, b_p)):
+            fail(f"bench C={c} voice stages: viterbi_decode at B={2 * c} "
+                 f"({what}) differs from its plain version in "
+                 f"{int((ordered != o_p).sum())} bits, "
+                 f"{int((bfi != b_p).sum())} BFI")
+        return ordered, bfi
+
+    def v2(state_fn, frames, valid, what):
+        st_k, pcm_k = speech.decode_block(state_fn(), frames, valid)
+        with plain_route():
+            st_p, pcm_p = speech.decode_block(state_fn(), frames, valid)
+        same = all(torch.equal(a, b) for a, b in zip(st_k, st_p))
+        if not (torch.equal(pcm_k, pcm_p) and same):
+            fail(f"bench C={c} voice stages: acelp_decode at S={c} x 4 "
+                 f"({what}) differs from its plain version in "
+                 f"{int((pcm_k != pcm_p).sum())} samples (state equal: "
+                 f"{same})")
+
+    # the step's own batch (noise: nearly every block fails its CRC, so
+    # V2 conceals), then V1's and V2's phase inputs at the same shapes
+    # (coded blocks under noise; speech frames with their corners)
+    ordered, bfi = v1(bench.voice_batch(fused, out_k[2]), "the step's")
+    n_bfi = int(bfi.sum())
+    v2(lambda: speech.init_state(c, DEV),
+       bench.voice_frames(ordered, bfi, bench.unbuild_index(x_p.device)),
+       torch.ones((c, 4), dtype=torch.bool, device=x_p.device), "the step's")
+    _, bfi = v1(torch.from_numpy(viterbi_inputs(2 * c, 43)).to(DEV),
+                "coded blocks")
+    fr, vd = speech_inputs(c, 4, 47)
+    v2(lambda: speech_state(c), torch.from_numpy(fr).to(DEV),
+       torch.from_numpy(vd).to(DEV), "speech frames")
+    res["viterbi_decode"] = {"B": 2 * c, "bfi_step": n_bfi,
+                             "bfi_coded": int(bfi.sum())}
+    res["acelp_decode"] = {"S": c, "frames": 4 * c,
+                           "bfi_speech": int(fr[:, :, 0].sum())}
+    say(f"bench C={c} voice stages on the same inputs: "
+        + ", ".join(f"{k} {v['max_abs_err']:.3e} (tol {v['tol']:.3e})"
+                    for k, v in res.items() if "tol" in v)
+        + f"; viterbi_decode B={2 * c} on the step's batch ({n_bfi} BFI) "
+          f"and on coded blocks ({res['viterbi_decode']['bfi_coded']} BFI), "
+          f"acelp_decode S={c} x 4 on the step's frames and on speech "
+          f"frames ({res['acelp_decode']['bfi_speech']} BFI): bit-equal")
+    return res
+
+
+def bench_launch_check(per: dict) -> None:
+    """A fused step launches each fused kernel once; the voice chain adds
+    V1 and V2 once; the classic step band_synth_y and frame_scan_even
+    once; the demod step band_synth_y once; no extraction kernel."""
+    if DEV == "cpu":
+        return
+    fused = {k: 1.0 for k in FUSED_KERNELS}
+    want = {"e2e": fused,
+            "voice": {**fused, **{k: 1.0 for k in BENCH_VOICE_KERNELS}},
+            "classic": {"band_synth_y": 1.0, "frame_scan_even": 1.0},
+            "demod": {"band_synth_y": 1.0}}
+    for name, r in per.items():
+        if r["launches_per_step"] != want[name]:
+            fail(f"bench {name}: launches a step {r['launches_per_step']}, "
+                 f"expected {want[name]}")
+
+
+def phase_bench(card: str) -> dict:
+    """The port's bench as a user runs it (BENCH_RUNS, each in its own
+    process), then in process: every chain at C=1024, one step of the
+    fused and the voice chain at C=20480 (the default run's shapes: V1 at
+    B=40960, V2 at S=20480, nfft 2^26) and one fused step at C=40960 (the
+    nfft cap) on the kernels against the plain versions, launches a step,
+    and the Profiler's busy share of the e2e and voice chains at C=1024
+    and C=20480."""
+    import torch
+    from tetraear_tpu_torch import bench
+    from tetraear_tpu_torch.voice import speech
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
+    res = {"runs": {}}
+    t0 = time.time()
+    for name, env, variant in BENCH_RUNS:
+        res["runs"][name] = bench_run(name, env, variant, card)
+    small, big = (8, 8) if REHEARSE else (1024, 20480)
+    res["chains_c1024"] = bench_chains(small, 2, ("e2e", "classic", "demod",
+                                                  "voice"))
+    bench_launch_check(res["chains_c1024"])
+    res["chains_c20480"] = bench_chains(big, 1, ("e2e", "voice"))
+    bench_launch_check(res["chains_c20480"])
+    # the nfft cap: half-size blocks of 2^26 where choose_nfft says 2^27
+    res["chains_c40960"] = bench_chains(8 if REHEARSE else 40960, 1,
+                                        ("e2e",))
+    bench_launch_check(res["chains_c40960"])
+    if DEV != "cpu":
+        res["profile"] = {}
+        out_dir = ROOT / "build" / "bench_profile"
+        for c in (small, big):
+            b, _ = bench.make_bank(c, device=DEV)
+            fused, _ = bench.backhalf.try_fused(b, DEV)
+            _, x_p = bench.noise_block(b.block_len, DEV)
+            box = {"e2e": [fused.init_state()],
+                   "voice": [fused.init_state(), speech.init_state(c, DEV)]}
+
+            def e2e(n, box=box["e2e"], fused=fused, x_p=x_p):
+                o = bench.chain_e2e_fused(fused, x_p, box[0], n)
+                box[0] = o["state"]
+                o["nhit"].item()
+
+            def voice(n, box=box["voice"], fused=fused, x_p=x_p):
+                o = bench.chain_voice(fused, x_p, box[0], box[1], n)
+                box[0], box[1] = o["state"], o["sstate"]
+                o["pacc"].item()
+
+            for name, run in (("e2e", e2e), ("voice", voice)):
+                profile_chain(f"bench_{name}_C{c}", run, 5, out_dir)
+                rep = json.loads((out_dir / f"profile_bench_{name}_C{c}"
+                                  ".json").read_text())
+                res["profile"][f"{name}_C{c}"] = {
+                    k: rep[k] for k in ("wall_ms_per_block",
+                                        "device_busy_ms_per_block",
+                                        "idle_share_of_span",
+                                        "launches_per_block")}
+            del b, fused, x_p, box
+            torch.cuda.empty_cache()
+    res["seconds"] = time.time() - t0
+    say(f"bench: phase done in {res['seconds']:.0f} s")
+    return res
+
+
 def phase_profiling(card: str, chains: dict, sp: dict, c: int,
                     c_big: int, nfft: int | None) -> dict:
     """runtime/profiling on the card: measure_hbm_gbs at 1 GiB (and 4
@@ -5372,7 +5720,9 @@ def phase_profiling(card: str, chains: dict, sp: dict, c: int,
 PROFILE_GROUPS = (
     ("hand-written kernels", ("band_synth_kernel", "frame_scan_kernel",
                               "fused_backhalf_kernel", "fft2p_pass",
-                              "extract_rows_kernel", "extract_pairs_kernel")),
+                              "extract_rows_kernel", "extract_pairs_kernel",
+                              "viterbi_kernel", "acelp_kernel",
+                              "tea_kernel")),
     ("cuFFT", ("_fft", "fft_")),
     ("concat and copies", ("CatArray", "direct_copy", "Memcpy", "Memset")),
     ("gathers and indexing", ("gather", "index")),
@@ -5602,10 +5952,11 @@ def ui_launches(ui: dict, name: str) -> dict:
     return {r: res["launches"].get(name, 0) for r, res in ui.items()}
 
 
-def main_only(phases: list) -> int:
-    """--only ui,examples: the named phases alone (after the build), each
-    result line printed; no result line."""
-    known = {"ui": lambda: phase_ui(seed=71), "examples": phase_examples}
+def main_only(phases: list, card: str) -> int:
+    """--only ui,examples,bench: the named phases alone (after the
+    build), each result line printed; no result line."""
+    known = {"ui": lambda: phase_ui(seed=71), "examples": phase_examples,
+             "bench": lambda: phase_bench(card)}
     bad = [p for p in phases if p not in known]
     if bad:
         print(f"chip_smoke.py --only: unknown phases {bad}; known "
@@ -5696,7 +6047,7 @@ def main(argv: list) -> int:
     if "--nccl-one-rank" in argv:
         return nccl_child()
     if "--only" in argv:
-        return main_only(argv[argv.index("--only") + 1].split(","))
+        return main_only(argv[argv.index("--only") + 1].split(","), card)
 
     # sizes: the real ones, or a tiny stand-in for each in the rehearsal
     # (C=8, nfft overrides; the fleet stand-in stays fused-eligible)
@@ -5803,6 +6154,8 @@ def main(argv: list) -> int:
     examples = phase_examples()
     say(f"[{time.time() - t_start:.0f} s] ui and examples phases done in "
         f"{time.time() - t_ui:.0f} s")
+    bench_res = phase_bench(card)
+    say(f"[{time.time() - t_start:.0f} s] bench phase done")
 
     # multi-device sharding (virtual meshes of the card) and the scanners;
     # the rehearsal's stand-ins: 2.304 and 10.24 MHz at C=8
@@ -5842,7 +6195,11 @@ def main(argv: list) -> int:
         "fft2p_pass1": counts_p1, "bit_place": counts_pl,
         "ops_probe": counts_op, "iir_recursion": counts_iir}
     kernels = []
+    bench_c1024 = bench_res["chains_c1024"]
     for name, (src, replaces) in KERNELS.items():
+        in_bench = {chain: r["launches_per_step"][name]
+                    for chain, r in bench_c1024.items()
+                    if name in r["launches_per_step"]}
         if name == "tea_search":
             entry = tea_entry(tea, tea_path, counts_stream, tea_fl)
             entry["launches_bruteforce_keys"] = \
@@ -5858,11 +6215,13 @@ def main(argv: list) -> int:
         if name == "viterbi_decode":
             kernels.append(dict(viterbi_entry(vit, vit_floor, vit_path,
                                               voice_fleet),
-                                launches_ui=ui_launches(ui, name)))
+                                launches_ui=ui_launches(ui, name),
+                                launches_bench_per_step=in_bench))
             continue
         if name == "acelp_decode":
             kernels.append(dict(acelp_entry(sp, voice_dev),
-                                launches_ui=ui_launches(ui, name)))
+                                launches_ui=ui_launches(ui, name),
+                                launches_bench_per_step=in_bench))
             continue
         k1, k2 = kern[name], kern_big[name]
         if main_path[name][name] == 0:
@@ -5883,6 +6242,7 @@ def main(argv: list) -> int:
             "bound_by_c10240": k2["bound_by"],
             "bound_bytes_c10240": k2["bytes"],
             "library_ms_c10240": k2["library_ms"],
+            **({"launches_bench_per_step": in_bench} if in_bench else {}),
             **({"launch_ms": k1["launch_ms"],
                 "launch_ms_c10240": k2["launch_ms"],
                 "source_bytes": k1["source_bytes"],
@@ -5937,6 +6297,7 @@ def main(argv: list) -> int:
         "examples": {e: {k: v for k, v in r.items() if k != "launches"}
                      for e, r in examples.items()},
         "profiling": prof,
+        "bench": bench_res,
         "sharding": {
             "conv": conv_sh, "fft_fleet": sh_fleet,
             "fft_fleet_aligned": sh_aligned, "fft_c10240": sh_big,

@@ -275,7 +275,8 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
         " 'tetraear_tpu_torch.examples.dense_fleet',"
         " 'tetraear_tpu_torch.examples.wideband_scan',"
         " 'tetraear_tpu_torch.examples.voice_roundtrip',"
-        " 'tetraear_tpu_torch.examples.sharded_deployment'}\n"
+        " 'tetraear_tpu_torch.examples.sharded_deployment',"
+        " 'tetraear_tpu_torch.bench'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print('CLEAN', len(names))\n")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
@@ -332,7 +333,8 @@ def test_resolve_cpu_only_when_asked():
                                    "profiler", "measure_hbm",
                                    "measured_hbm", "tool_cli",
                                    "dashboard", "qt_gui",
-                                   "example_decode_capture"])
+                                   "example_decode_capture", "bench",
+                                   "bench_cli"])
 def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
     """No device given means the card: on a machine without one every
     entry point raises; none carries on on the CPU."""
@@ -426,6 +428,9 @@ def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
         "qt_gui": qt_gui,
         "example_decode_capture": lambda: importlib.import_module(
             "tetraear_tpu_torch.examples.decode_capture").main([]),
+        "bench": lambda: importlib.import_module(
+            "tetraear_tpu_torch.bench").run_bench(8, steps=1),
+        "bench_cli": lambda: main(["bench"]),
     }
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         calls[entry]()

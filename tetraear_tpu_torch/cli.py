@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``listen``, ``decode``,
-``scan`` and the tools.
+``scan``, ``bench`` and the tools.
 
     python -m tetraear_tpu_torch listen --source synthetic --max-blocks 4
     python -m tetraear_tpu_torch decode --source capture.cs16 -s 2.4 \\
@@ -16,7 +16,11 @@ given.  ``scan`` looks for TETRA channels: ``--wideband`` scores every
 25 kHz channel of one ``--dwell`` seconds capture with the carrier bank
 (scan.scanner.WidebandScanner, on ``--device``); without it the step
 scanner retunes the source over [start, stop] MHz and analyses each
-channel on the host (FrequencyScanner).
+channel on the host (FrequencyScanner).  ``bench`` runs the port's
+benchmark (tetraear_tpu_torch/bench.py: real-time carriers per card,
+BENCH_* in the environment, C=20480 by default) on ``--device``:
+
+    python -m tetraear_tpu_torch bench
 
 The tool subcommands (``TOOLS``: ``bruteforce-keys``, ``decrypt-capture``,
 ``continuous-capture``, ``listen-clear``, ``auto-capture``,
@@ -246,6 +250,13 @@ def cmd_scan(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The port's benchmark, in process (bench.main)."""
+    from tetraear_tpu_torch import bench
+    return bench.main([] if args.device is None
+                      else ["--device", args.device])
+
+
 # subcommand -> module of tetraear_tpu_torch.tools whose main() takes the
 # rest of the command line (the JAX CLI's tool dispatch)
 TOOLS = (
@@ -285,6 +296,12 @@ def main(argv=None) -> int:
     p.add_argument("--dwell", type=float, default=0.2,
                    help="seconds of capture a wideband scan reads")
     p.set_defaults(func=cmd_scan)
+    p = sub.add_parser("bench", help="real-time carriers per card "
+                                     "(BENCH_* in the environment)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' "
+                        "runs the kernels' plain versions)")
+    p.set_defaults(func=cmd_bench)
     for name, module in TOOLS:
         p = sub.add_parser(name, help=f"tool: {module}", add_help=False)
         p.set_defaults(tool_module=module)

@@ -148,6 +148,20 @@ class FusedRx:
 
     # -- the fused block step ------------------------------------------
 
+    def fft2p_args(self, x_p: torch.Tensor, cstate: dict) -> tuple:
+        """fft2p_planes_spliced's arguments for the block x_p after the
+        carried tail: (tail rows, block rows, n1, n2, wrap)."""
+        ch = self.ch
+        n1, n2 = ch.fft2p_n1, ch.fft2p_n2
+        tail_p = cstate["tail"].t().contiguous()             # (2, overlap)
+        if ch.fft2p_splice:
+            o2 = ch.overlap // n1
+            return (tail_p.view(2, o2, n1), x_p.reshape(2, n2 - o2, n1),
+                    n1, n2, ch.fft2p_wrap)
+        win = torch.cat([tail_p, x_p], dim=1)
+        return (win[:, :0].reshape(2, 0, n1), win.reshape(2, n2, n1), n1,
+                n2, ch.fft2p_wrap)
+
     def chan_raw(self, x_p: torch.Tensor, cstate: dict) -> tuple:
         """Channelizer front + band synthesis with the fused phasor.
 
@@ -155,21 +169,10 @@ class FusedRx:
         Returns (y raw planes (C, 2, 128, P), phasor (C, 1, 128),
         (rot_re, rot_im) (C,) each, new channelizer state)."""
         ch = self.ch
-        n1, n2 = ch.fft2p_n1, ch.fft2p_n2
         if tuple(x_p.shape) != (2, ch.block_len):
             raise ValueError(f"chan_raw: block shape {tuple(x_p.shape)}, "
                              f"expected planar (2, {ch.block_len})")
-        tail_p = cstate["tail"].t().contiguous()             # (2, overlap)
-        if ch.fft2p_splice:
-            o2 = ch.overlap // n1
-            planes = ck.fft2p_planes_spliced(
-                tail_p.view(2, o2, n1), x_p.reshape(2, n2 - o2, n1),
-                n1, n2, ch.fft2p_wrap)
-        else:
-            win = torch.cat([tail_p, x_p], dim=1)
-            planes = ck.fft2p_planes_spliced(
-                win[:, :0].reshape(2, 0, n1), win.reshape(2, n2, n1),
-                n1, n2, ch.fft2p_wrap)
+        planes = ck.fft2p_planes_spliced(*self.fft2p_args(x_p, cstate))
         new_tail = x_p[:, x_p.shape[1] - ch.overlap:].t().contiguous()
         y, ph = ck.band_synth(
             planes, self.h1_planes, self.row_start, self.d_shift,
