@@ -61,10 +61,12 @@ COPIES = {
     "scan/scanner.py": ("WidebandScanner.scan",),
     # the scan kernel is built at first use on the port's device, the
     # native parser is built before the first parse, and the deferred
-    # key search runs on that device
+    # key search runs on that device; spans of the port's tracer
     "frame/batch.py": ("BatchedFrameDecoder.__init__",
                        "BatchedFrameDecoder.kernel",
-                       "BatchedFrameDecoder._attach_and_decrypt"),
+                       "BatchedFrameDecoder._attach_and_decrypt",
+                       "BatchedFrameDecoder.process_scanned_sparse",
+                       "BatchedFrameDecoder.select_and_decode_hits"),
     # the parent's frame layer and its key search take the device; the
     # workers' MAC parser states travel in the port's checkpoints
     "frame/parallel.py": ("ShardedFrameLayer.__init__",

@@ -46,12 +46,14 @@ import numpy as np
 
 from tetraear_tpu_torch.crypto.tea import TetraKeyManager
 from tetraear_tpu_torch.device import resolve
+from tetraear_tpu_torch.dsp import cuda_kernels as ck
 from tetraear_tpu_torch.dsp.pipeline import CarrierBankDemod
 from tetraear_tpu_torch.frame.aggregator import CallAggregator
 from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder
 from tetraear_tpu_torch.frame.decoder import TetraDecoder
 from tetraear_tpu_torch.frame.structure import FrameStructureTracker
 from tetraear_tpu_torch.frame.validator import TetraSignalValidator
+from tetraear_tpu_torch.runtime import profiling as prof
 from tetraear_tpu_torch.runtime.stream import DecodeRunner
 
 logger = logging.getLogger(__name__)
@@ -322,7 +324,18 @@ class Pipeline:
         sparse or dense scan outputs), the same one ``run_offline``
         chains, so both give the same frames for the same capture.  With
         ``device_scan=False`` the bank's block step runs and the frame
-        layer scans the assembled rows itself (``batch.process``)."""
+        layer scans the assembled rows itself (``batch.process``).
+
+        The block is the root span of the port's tracer (runtime/
+        profiling): traced, each block is a record of its spans, and the
+        ``launches`` counter takes the block's kernel launches."""
+        launches = sum(ck.launches.values())
+        with prof.block():
+            frames_out = self._process_block(block)
+            prof.count("launches", sum(ck.launches.values()) - launches)
+        return frames_out
+
+    def _process_block(self, block: np.ndarray) -> list:
         block = np.asarray(block, np.complex64)
         if len(block) < self.block_len:
             return []
@@ -364,15 +377,24 @@ class Pipeline:
                 (out["soft"].cpu().numpy() if self.voice is not None
                  else None),
                 out["valid"].cpu().numpy())
-        self._prepare_voice_batch(frames_out)
-        self._synth_voice(frames_out)
-        for f in frames_out:
-            ci = f["carrier"]
-            f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
-            f["frequency"] = self.config.frequency + float(
-                self.bank.freqs_hz[ci])
-            self._handle_frame(f)
+        self._finish_block(frames_out)
         return frames_out
+
+    def _finish_block(self, frames: list) -> None:
+        """The block-level passes after the frame layer: one batched
+        channel decode, speech synthesis, then each frame through
+        ``_handle_frame`` (trackers, validator, aggregator, callbacks)."""
+        with prof.span("voice_prepare"):
+            self._prepare_voice_batch(frames)
+        with prof.span("voice_synth"):
+            self._synth_voice(frames)
+        with prof.span("handle_frames"):
+            for f in frames:
+                ci = f["carrier"]
+                f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
+                f["frequency"] = self.config.frequency + float(
+                    self.bank.freqs_hz[ci])
+                self._handle_frame(f)
 
     def _handle_frame(self, frame: dict) -> None:
         ci = frame.get("carrier", 0)
@@ -462,6 +484,7 @@ class Pipeline:
                 continue
             f["_voice_block"] = block
             cands.append(f)
+        prof.count("voice_candidates", len(cands))
         if len(cands) < 2:
             if self._voice_device is not None:
                 # device synthesis needs channel-decoded params for every
@@ -476,7 +499,9 @@ class Pipeline:
         from tetraear_tpu_torch.voice import viterbi
         softs = np.stack([block_soft_bits(f["_voice_block"])
                           for f in cands])
-        out = viterbi.channel_decode_batch(softs, device=self.device)
+        prof.count("v1_rows", len(softs))
+        with prof.span("v1"):
+            out = viterbi.channel_decode_batch(softs, device=self.device)
         for i, f in enumerate(cands):
             params = np.zeros((2, 138), np.int16)
             params[:, 0] = 1 if out["bfi"][i] else 0
@@ -721,18 +746,8 @@ class Pipeline:
         frame."""
         runner = self.runner
         runner.s = int(blocks_per_dispatch)
-
-        def on_frames(frames):
-            # the block-level voice passes of process_block: one batched
-            # channel decode, then per-carrier synthesis
-            self._prepare_voice_batch(frames)
-            self._synth_voice(frames)
-            for f in frames:
-                ci = f["carrier"]
-                f["carrier_offset_hz"] = float(self.bank.freqs_hz[ci])
-                f["frequency"] = self.config.frequency + float(
-                    self.bank.freqs_hz[ci])
-                self._handle_frame(f)
+        # the block-level passes of process_block
+        on_frames = self._finish_block
 
         span = runner.s * self.block_len
         with source:
@@ -749,8 +764,10 @@ class Pipeline:
                         [chunk, np.zeros(pad, np.complex64)])
                 self.stats.blocks += len(chunk) // self.block_len
                 self.stats.samples += len(chunk)
-                out = runner.run(chunk, state=self.state,
-                                 on_frames=on_frames)
+                # a dispatch is the root span of the tracer's record here
+                with prof.block("dispatch"):
+                    out = runner.run(chunk, state=self.state,
+                                     on_frames=on_frames)
                 self.state = out["state"]
                 n += len(chunk) // self.block_len
                 if len(chunk) < want:

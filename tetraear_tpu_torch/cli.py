@@ -10,7 +10,8 @@
 ``Pipeline.run`` / ``process_block`` (the JAX CLI's default command, the
 CLI listener of modern.py:5334-5405); ``decode`` decodes a capture file
 S blocks per device batch (``Pipeline.run_offline``).  Both print each
-frame and a JSON summary, take the receive-chain options and
+frame and a JSON summary (with the tracer's counters; ``--trace``
+adds each span's totals), take the receive-chain options and
 ``--frame-workers``, and run on the card unless ``--device cpu`` is
 given.  ``scan`` looks for TETRA channels: ``--wideband`` scores every
 25 kHz channel of one ``--dwell`` seconds capture with the carrier bank
@@ -167,16 +168,30 @@ def _open_source(args):
 
 
 def _summary(pipe, stats) -> dict:
+    """The run's JSON summary: the stats, the tracer's counters (always
+    on) and, with ``--trace``, its per-stage totals (``report()``)."""
+    from tetraear_tpu_torch.runtime import profiling
     summary = stats.as_dict()
     summary["device"] = str(pipe.device)
     summary["backhalf"] = pipe.runner._backhalf_reason
     summary["activity"] = pipe.aggregator.snapshot()
     summary["tdma"] = [t.stats() for t in pipe.trackers if t.slot_counter]
+    tracer = profiling.tracer()
+    summary["counters"] = tracer.counters()
+    if tracer.on:
+        summary["stages"] = tracer.report()
     return summary
+
+
+def _trace(args) -> None:
+    if args.trace:
+        from tetraear_tpu_torch.runtime import profiling
+        profiling.tracer().enable()
 
 
 def cmd_listen(args) -> int:
     """Stream a source block by block (Pipeline.run -> process_block)."""
+    _trace(args)
     listener = CLIListener(show_invalid=args.show_invalid)
     pipe = _make_pipeline(args, on_frame=listener.on_frame,
                           on_status=listener.on_status)
@@ -199,6 +214,7 @@ def cmd_listen(args) -> int:
 def cmd_decode_file(args) -> int:
     """Offline decode of a recorded capture -> frames on stdout/JSONL,
     S blocks per device batch (Pipeline.run_offline)."""
+    _trace(args)
     listener = CLIListener(show_invalid=args.show_invalid)
     pipe = _make_pipeline(args, on_frame=listener.on_frame)
     try:
@@ -277,11 +293,15 @@ def main(argv=None) -> int:
         prog="tetraear_tpu_torch",
         description="TETRA receive chain on PyTorch + CUDA")
     sub = parser.add_subparsers(dest="command")
+    trace_help = ("trace the run: the summary adds each span's totals "
+                  "(runtime/profiling.Tracer.report) to the counters")
     p = sub.add_parser("listen", help="realtime/headless listener")
     _add_common(p, "rtlsdr")
+    p.add_argument("--trace", action="store_true", help=trace_help)
     p.set_defaults(func=cmd_listen)
     p = sub.add_parser("decode", help="offline decode of a capture file")
     _add_common(p, None)
+    p.add_argument("--trace", action="store_true", help=trace_help)
     p.add_argument("--dispatch-blocks", type=int, default=16,
                    help="blocks per device batch (default 16)")
     p.set_defaults(func=cmd_decode_file)

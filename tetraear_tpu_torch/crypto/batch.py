@@ -42,6 +42,7 @@ import torch
 
 from tetraear_tpu_torch.device import resolve
 from tetraear_tpu_torch.dsp import cuda_kernels as ck
+from tetraear_tpu_torch.runtime import profiling as prof
 
 _DELTA = np.uint32(0x9E3779B9)
 _SUM0 = np.uint32((0x9E3779B9 * 32) & 0xFFFFFFFF)
@@ -426,69 +427,104 @@ def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
     _select_decrypt); only the TEA rounds move to the device.  Payloads
     are zero-padded to a common width — harmless for ECB, each frame's
     plaintext is truncated back to its own length.
+
+    Traced as ``key_plan`` (plans, key and payload matrices), ``tea``
+    (upload, launch, fetch) and ``key_score`` (the selection loops), and
+    counted: ``key_frames`` (frames with a plan), ``tea_rows`` (K x B of
+    the launch), ``keys_scored`` (plan entries scored through the last
+    plaintext each frame's loop asked for, BYPASS entries among them)
+    and ``decrypted``.
     """
-    pending = []
-    for f in frames:
-        if not f.pop("decryption_pending", False):
-            continue
-        dec = decoders[f.get("carrier", 0)]
-        plan = dec._build_key_plan(f)
-        if plan is None:
-            continue
-        pending.append((f, dec, plan))
+    with prof.span("key_plan"):
+        pending = []
+        for f in frames:
+            if not f.pop("decryption_pending", False):
+                continue
+            dec = decoders[f.get("carrier", 0)]
+            plan = dec._build_key_plan(f)
+            if plan is None:
+                continue
+            pending.append((f, dec, plan))
     if not pending:
         return
+    prof.count("key_frames", len(pending))
+    # the last plan entry each frame's loop asked a plaintext for (-1:
+    # none): its loop scored entries 0..last
+    last = [-1] * len(pending)
     if len(pending) == 1:
         # a lone frame is cheaper on the host than one device round trip
+        from tetraear_tpu_torch.crypto.tea import TEADecryptor
         f, dec, (payload, keys_to_try) = pending[0]
-        dec._select_decrypt(f, payload, keys_to_try)
-        dec._post_decrypt_sds(f)
+
+        def host_plaintext(i):
+            # what _select_decrypt does without plaintext_at, counted
+            last[0] = i
+            key, _desc, alg = keys_to_try[i]
+            return TEADecryptor(key, alg).decrypt(payload)
+
+        with prof.span("key_score"):
+            dec._select_decrypt(f, payload, keys_to_try, host_plaintext)
+            dec._post_decrypt_sds(f)
+        _count_scored(pending, last)
         return
 
-    # collect unique keys per cipher family (TEA1 10-byte; TEA2/3/4
-    # share the classic-TEA structure, crypto.tea semantics)
-    fam_keys = {"TEA1": [], "TEA2": []}
-    fam_index = {"TEA1": {}, "TEA2": {}}
-    max_len = 0
-    for _, _, (payload, keys_to_try) in pending:
-        max_len = max(max_len, len(payload))
-        for key, _desc, alg in keys_to_try:
-            if key is None:
-                continue
-            fam = "TEA1" if alg == "TEA1" else "TEA2"
-            want = 10 if fam == "TEA1" else 16
-            if len(key) != want:
-                continue               # host loop would raise+skip too
-            if key not in fam_index[fam]:
-                fam_index[fam][key] = len(fam_keys[fam])
-                fam_keys[fam].append(key)
+    with prof.span("key_plan"):
+        # collect unique keys per cipher family (TEA1 10-byte; TEA2/3/4
+        # share the classic-TEA structure, crypto.tea semantics)
+        fam_keys = {"TEA1": [], "TEA2": []}
+        fam_index = {"TEA1": {}, "TEA2": {}}
+        max_len = 0
+        for _, _, (payload, keys_to_try) in pending:
+            max_len = max(max_len, len(payload))
+            for key, _desc, alg in keys_to_try:
+                if key is None:
+                    continue
+                fam = "TEA1" if alg == "TEA1" else "TEA2"
+                want = 10 if fam == "TEA1" else 16
+                if len(key) != want:
+                    continue           # host loop would raise+skip too
+                if key not in fam_index[fam]:
+                    fam_index[fam][key] = len(fam_keys[fam])
+                    fam_keys[fam].append(key)
 
-    payload_mat = np.zeros((len(pending), max_len), np.uint8)
-    for bi, (_, _, (payload, _)) in enumerate(pending):
-        payload_mat[bi, :len(payload)] = np.frombuffer(payload, np.uint8)
+        payload_mat = np.zeros((len(pending), max_len), np.uint8)
+        for bi, (_, _, (payload, _)) in enumerate(pending):
+            payload_mat[bi, :len(payload)] = np.frombuffer(payload, np.uint8)
 
     # one search for both families, TEA1's keys first
     plains = None
     if fam_keys["TEA1"] or fam_keys["TEA2"]:
-        plains = tea_decrypt_families(payload_mat, fam_keys["TEA1"],
-                                      fam_keys["TEA2"], device=device)
+        with prof.span("tea"):
+            plains = tea_decrypt_families(payload_mat, fam_keys["TEA1"],
+                                          fam_keys["TEA2"], device=device)
+        prof.count("tea_rows", plains.shape[0] * plains.shape[1])
     first = {"TEA1": 0, "TEA2": len(fam_keys["TEA1"])}
 
-    for bi, (f, dec, (payload, keys_to_try)) in enumerate(pending):
+    with prof.span("key_score"):
+        for bi, (f, dec, (payload, keys_to_try)) in enumerate(pending):
 
-        def plaintext_at(i, _bi=bi, _payload=payload,
-                         _keys=keys_to_try):
-            key, _desc, alg = _keys[i]
-            fam = "TEA1" if alg == "TEA1" else "TEA2"
-            ki = fam_index[fam].get(key)
-            if ki is None:             # invalid combo: host semantics
-                from tetraear_tpu_torch.crypto.tea import TEADecryptor
-                return TEADecryptor(key, alg).decrypt(_payload)
-            return plains[first[fam] + ki, _bi,
-                          :len(_payload)].tobytes()
+            def plaintext_at(i, _bi=bi, _payload=payload,
+                             _keys=keys_to_try):
+                last[_bi] = i
+                key, _desc, alg = _keys[i]
+                fam = "TEA1" if alg == "TEA1" else "TEA2"
+                ki = fam_index[fam].get(key)
+                if ki is None:         # invalid combo: host semantics
+                    from tetraear_tpu_torch.crypto.tea import TEADecryptor
+                    return TEADecryptor(key, alg).decrypt(_payload)
+                return plains[first[fam] + ki, _bi,
+                              :len(_payload)].tobytes()
 
-        dec._select_decrypt(f, payload, keys_to_try, plaintext_at)
-        dec._post_decrypt_sds(f)
+            dec._select_decrypt(f, payload, keys_to_try, plaintext_at)
+            dec._post_decrypt_sds(f)
+    _count_scored(pending, last)
+
+
+def _count_scored(pending: list, last: list) -> None:
+    """The block's ``keys_scored`` and ``decrypted`` counters."""
+    prof.count("keys_scored", sum(last) + len(last))
+    prof.count("decrypted", sum(1 for f, _, _ in pending
+                                if f.get("decrypted")))
 
 
 def tea_key_search(payloads, keys, algorithm: str = "TEA1",

@@ -407,29 +407,37 @@ class BatchedFrameDecoder:
         collection touches O(hits) data and the crc hints ride in the
         hit records, so no virtual-plane reconstruction happens."""
         from tetraear_tpu_torch.frame import hitparse
+        from tetraear_tpu_torch.runtime import profiling as prof
 
-        cands, hints = collect_hits(
-            np.arange(len(syms)), syms, n_valid, valid_start_bits,
-            self._sym_base, self._emitted_until, self.scan_stride,
-            rows_h, pe_h, corr_h, crc_h)
-        hb = (hitparse.parse_windows(
-            np.stack([c[3] for c in cands])) if cands else None)
-        frames_out = decode_candidates(
-            self.decoders, self._emitted_until, cands, hb, hints,
-            syms=syms)
+        with prof.span("select"):
+            cands, hints = collect_hits(
+                np.arange(len(syms)), syms, n_valid, valid_start_bits,
+                self._sym_base, self._emitted_until, self.scan_stride,
+                rows_h, pe_h, corr_h, crc_h)
+        prof.count("candidates", len(cands))
+        with prof.span("parse"):
+            hb = (hitparse.parse_windows(
+                np.stack([c[3] for c in cands])) if cands else None)
+        with prof.span("decode"):
+            frames_out = decode_candidates(
+                self.decoders, self._emitted_until, cands, hb, hints,
+                syms=syms)
         return self._attach_and_decrypt(frames_out, softs)
 
     def _attach_and_decrypt(self, frames_out: list, softs) -> list:
         """Shared epilogue of both selection paths: attach per-frame
         soft-symbol slices, finish deferred decryption with one device
         keys x payloads search for the whole block (crypto.batch)."""
-        if frames_out and hasattr(softs, "prefetch"):
-            # device-backed lazy view: batch the row gathers
-            softs.prefetch([(f["carrier"], f["position"] // 2)
-                            for f in frames_out])
-        for frame in frames_out:
-            ci, start = frame["carrier"], frame["position"]
-            frame["soft_symbols"] = soft_slice(softs, ci, start // 2)
+        from tetraear_tpu_torch.runtime import profiling as prof
+
+        with prof.span("soft_rows"):
+            if frames_out and hasattr(softs, "prefetch"):
+                # device-backed lazy view: batch the row gathers
+                softs.prefetch([(f["carrier"], f["position"] // 2)
+                                for f in frames_out])
+            for frame in frames_out:
+                ci, start = frame["carrier"], frame["position"]
+                frame["soft_symbols"] = soft_slice(softs, ci, start // 2)
         if any(f.get("decryption_pending") for f in frames_out):
             from tetraear_tpu_torch.crypto.batch import batch_decrypt_frames
             batch_decrypt_frames(self.decoders, frames_out,
@@ -529,8 +537,10 @@ class BatchedFrameDecoder:
         passes per block, more than the block's realtime budget at
         fleet size."""
         from tetraear_tpu_torch.dsp import framescan
+        from tetraear_tpu_torch.runtime import profiling as prof
 
-        syms, softs, n_total, vstart = self.assemble(hard, soft, valid)
+        with prof.span("assemble"):
+            syms, softs, n_total, vstart = self.assemble(hard, soft, valid)
 
         def bits_rows(rows):
             s = syms[rows]
@@ -539,8 +549,10 @@ class BatchedFrameDecoder:
             b[:, 1::2] = s & 1
             return b
 
-        rows_h, pe_h, corr_h, crc_h = framescan.hits_from_keys(
-            keys, counts, pe_n, pc_n, bits_rows)
+        with prof.span("hits"):
+            rows_h, pe_h, corr_h, crc_h = framescan.hits_from_keys(
+                keys, counts, pe_n, pc_n, bits_rows)
+        prof.count("hits", len(rows_h))
         frames = self.select_and_decode_hits(
             syms, softs, n_total, vstart, rows_h, pe_h, corr_h, crc_h)
         self._sym_base = self._sym_base + (n_total - self.T)

@@ -7,6 +7,9 @@ The port's form of the JAX package's runtime/profiling.py:
     every kernel launched inside it;
   * StageTimers — host-side per-stage wall-time accounting with
     samples/s rates (the JAX package's, code for code);
+  * the port's tracer (``tracer()``, ``block``, ``span``, ``count``) —
+    spans and counters inside the live path, a block at a time, on
+    StageTimers' totals (see ``Tracer``);
   * roofline_estimate — back-of-envelope FLOP/byte counts for the demod
     chain (the JAX package's, code for code);
   * the card's peaks (HBM_BYTES_PER_S, FP32_OPS_PER_S and the integer
@@ -29,7 +32,7 @@ import os
 import subprocess
 import tempfile
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from pathlib import Path
 
 from tetraear_tpu_torch.device import resolve
@@ -147,6 +150,236 @@ class StageTimers:
                 entry["items_per_s"] = self.items[name] / max(total, 1e-12)
             out[name] = entry
         return out
+
+
+# whole blocks the tracer keeps in memory, the oldest dropped first
+BLOCKS_KEPT = 1024
+
+
+class _NullSpan:
+    """The shared no-op context a span site gets while nothing is traced."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class BlockRecord:
+    """One block of the tracer: ``spans`` holds [name, start, end, parent]
+    in the order the spans opened (time.perf_counter seconds; ``parent``
+    is the parent's position in the list, -1 for the root ``spans[0]``),
+    ``counts`` the counters added in the block and ``device_ms`` the
+    CUDA-event milliseconds of the spans that recorded events."""
+
+    __slots__ = ("index", "spans", "counts", "device_ms")
+
+    def __init__(self, index: int):
+        self.index = index
+        self.spans: list = []
+        self.counts: dict = {}
+        self.device_ms: dict = {}
+
+    @property
+    def name(self) -> str:
+        return self.spans[0][0]
+
+    @property
+    def start(self) -> float:
+        return self.spans[0][1]
+
+    def ms(self, name: str) -> float:
+        """Host milliseconds of the block's spans called ``name``."""
+        return 1e3 * sum(s[2] - s[1] for s in self.spans if s[0] == name)
+
+
+class _Span:
+    """An open span of the tracer (``span``): its row in the block's
+    record, a ``te.<name>`` profiler range while a torch.profiler session
+    is on, and two CUDA events where it times a device."""
+
+    __slots__ = ("tr", "name", "cuda", "pos", "rf", "e0")
+
+    def __init__(self, tr, name: str, cuda: bool = False):
+        self.tr = tr
+        self.name = name
+        self.cuda = cuda
+        self.rf = self.e0 = None
+
+    def __enter__(self):
+        tr = self.tr
+        if tr._ranges:
+            import torch
+            self.rf = torch.profiler.record_function("te." + self.name)
+            self.rf.__enter__()
+        spans = tr._cur.spans
+        self.pos = len(spans)
+        stack = tr._stack
+        spans.append([self.name, time.perf_counter(), None,
+                      stack[-1] if stack else -1])
+        stack.append(self.pos)
+        if self.cuda:
+            import torch
+            self.e0 = torch.cuda.Event(enable_timing=True)
+            self.e0.record()
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.tr
+        if self.e0 is not None:
+            import torch
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            tr._pending.append((self.name, self.e0, e1))
+        t1 = time.perf_counter()
+        row = tr._cur.spans[self.pos]
+        row[2] = t1
+        tr._stack.pop()
+        tr.totals[self.name] += t1 - row[1]
+        tr.counts[self.name] += 1
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+class _Block(_Span):
+    """The root span: opens a block record, closes it into the ring."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        tr = self.tr
+        tr._ranges = _profiler_active()
+        tr._index += 1
+        tr._cur = BlockRecord(tr._index)
+        tr._stack = []
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        tr = self.tr
+        tr.blocks.append(tr._cur)
+        tr._cur = None
+        tr._pending = []
+        tr._ranges = False
+        return False
+
+
+def _profiler_active() -> bool:
+    import torch
+    return bool(torch.autograd._profiler_enabled())
+
+
+class Tracer(StageTimers):
+    """The port's tracer: one a process (``tracer()``), as ``logging``
+    has one root logger, so a reader needs no reference to a Pipeline.
+
+    Off by default.  Off, every span site (``span``, ``block``) is one
+    attribute check that returns the shared ``NULL_SPAN``: nothing is
+    recorded, allocated or synchronized.  On (``enable()``), the root
+    span ``block`` (one a ``Pipeline.process_block``) opens a
+    ``BlockRecord`` and every span inside it records its name, start,
+    end and parent on ``time.perf_counter``; spans opened outside a block
+    record nothing.  Closed blocks go into ``blocks``, a ring of the last
+    ``BLOCKS_KEPT``, and every span's time into StageTimers' totals
+    (``report()``).  While a torch.profiler session is on (checked once a
+    block) each span also opens a ``te.<name>`` range, so a device trace
+    holds the program's spans beside its kernels and copies.  A span
+    opened with a CUDA device records two CUDA events; ``read_device()``
+    reads their milliseconds once they have completed, so no synchronize
+    is added.
+
+    Counters (``count``) are always on: integers added once a block to
+    ``counter_totals`` and, while a block is recorded, to its
+    ``counts``."""
+
+    def __init__(self):
+        super().__init__()
+        self.on = False
+        self.blocks: deque = deque(maxlen=BLOCKS_KEPT)
+        self.counter_totals: dict = defaultdict(int)
+        self._cur = None                # the open BlockRecord
+        self._stack: list = []          # positions of the open spans
+        self._pending: list = []        # (name, e0, e1) unread events
+        self._ranges = False
+        self._index = 0
+
+    def enable(self, on: bool = True) -> None:
+        self.on = bool(on)
+
+    def reset(self) -> None:
+        """Drop every record, total and counter (the switch stays)."""
+        on = self.on
+        self.__init__()
+        self.on = on
+
+    def counters(self) -> dict:
+        return dict(self.counter_totals)
+
+    def window(self, t_lo: float, t_hi: float,
+               name: str = "block") -> list:
+        """The kept records of root ``name`` that started in [t_lo,
+        t_hi)."""
+        return [b for b in self.blocks
+                if b.name == name and t_lo <= b.start < t_hi]
+
+
+_TRACER = Tracer()
+
+
+def tracer() -> Tracer:
+    """The process's tracer."""
+    return _TRACER
+
+
+def block(name: str = "block"):
+    """The root span of one block (a plain span if a block is open)."""
+    tr = _TRACER
+    if not tr.on:
+        return NULL_SPAN
+    if tr._cur is not None:
+        return _Span(tr, name)
+    return _Block(tr, name)
+
+
+def span(name: str, device=None):
+    """A span inside the open block; ``device`` (a torch.device) adds
+    two CUDA events where it is a card."""
+    tr = _TRACER
+    if tr._cur is None:
+        return NULL_SPAN
+    return _Span(tr, name, device is not None and device.type == "cuda")
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to a counter (always on; once a block at each site)."""
+    tr = _TRACER
+    tr.counter_totals[name] += n
+    rec = tr._cur
+    if rec is not None:
+        rec.counts[name] = rec.counts.get(name, 0) + n
+
+
+def read_device() -> None:
+    """Read the CUDA-event milliseconds of the open block's spans whose
+    events have completed (a query, never a wait)."""
+    tr = _TRACER
+    if tr._cur is None or not tr._pending:
+        return
+    keep = []
+    for name, e0, e1 in tr._pending:
+        if e1.query():
+            ms = tr._cur.device_ms
+            ms[name] = ms.get(name, 0.0) + e0.elapsed_time(e1)
+        else:
+            keep.append((name, e0, e1))
+    tr._pending = keep
 
 
 def roofline_estimate(n_carriers: int, fs: float, frontend: str = "fft",

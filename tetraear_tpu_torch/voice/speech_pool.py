@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from tetraear_tpu_torch.device import resolve
+from tetraear_tpu_torch.runtime import profiling as prof
 from tetraear_tpu_torch.voice import speech
 
 logger = logging.getLogger(__name__)
@@ -165,27 +166,32 @@ class DeviceSpeechPool:
             frames[i, :p.shape[0]] = p
             valid[i, :p.shape[0]] = True
         rows = np.asarray(rows, np.int32)
+        prof.count("v2_slots", len(rows))
+        prof.count("v2_evictions", len(reset))
         reset = np.asarray(reset, np.int64)
         pcms = []
-        for s, ((lo, hi), dev) in enumerate(zip(self._bounds, self.devices)):
-            mine = (reset >= lo) & (reset < hi)
-            if mine.any():
-                mask = torch.zeros(hi - lo, dtype=torch.bool)
-                mask[reset[mine] - lo] = True
-                self.states[s] = speech.reset_rows(self.states[s],
-                                                   mask.to(dev))
-            idx = np.flatnonzero((rows >= lo) & (rows < hi))
-            if not len(idx):
-                continue
-            # the shard's rows as a host list (decode_block's ``rows``)
-            self.states[s], pcm = speech.decode_block(
-                self.states[s], torch.from_numpy(frames[idx]).to(dev),
-                torch.from_numpy(valid[idx]).to(dev),
-                torch.from_numpy((rows[idx] - lo).astype(np.int32)))
-            pcms.append((idx, pcm))
-        pcm = np.zeros((len(items), f_max, speech.L_FRAME), np.int32)
-        for idx, got in pcms:
-            pcm[idx] = got.cpu().numpy()               # (A, f_max, 240)
+        with prof.span("v2"):
+            for s, ((lo, hi), dev) in enumerate(zip(self._bounds,
+                                                    self.devices)):
+                mine = (reset >= lo) & (reset < hi)
+                if mine.any():
+                    mask = torch.zeros(hi - lo, dtype=torch.bool)
+                    mask[reset[mine] - lo] = True
+                    self.states[s] = speech.reset_rows(self.states[s],
+                                                       mask.to(dev))
+                idx = np.flatnonzero((rows >= lo) & (rows < hi))
+                if not len(idx):
+                    continue
+                # the shard's rows as a host list (decode_block's ``rows``)
+                self.states[s], pcm = speech.decode_block(
+                    self.states[s], torch.from_numpy(frames[idx]).to(dev),
+                    torch.from_numpy(valid[idx]).to(dev),
+                    torch.from_numpy((rows[idx] - lo).astype(np.int32)))
+                pcms.append((idx, pcm))
+            prof.count("v2_launches", len(pcms))
+            pcm = np.zeros((len(items), f_max, speech.L_FRAME), np.int32)
+            for idx, got in pcms:
+                pcm[idx] = got.cpu().numpy()           # (A, f_max, 240)
         return [
             pcm[i, :p.shape[0]].reshape(-1).astype(np.float32) / 32768.0
             for i, (_, p) in enumerate(items)]
