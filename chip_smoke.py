@@ -177,7 +177,7 @@ Two other modes print no result line and exit non-zero:
                                        # versions; nothing is built)
     python3 chip_smoke.py --nccl-one-rank  # the nccl one rank phase's
                                        # own process (one JSON line)
-    python3 chip_smoke.py --only ui,examples,bench  # those phases
+    python3 chip_smoke.py --only ui,examples,bench,keyscore  # those phases
                                        # alone after the build, a JSON
                                        # line each
     python3 chip_smoke.py --parent DIR # each redesigned kernel whose
@@ -219,6 +219,10 @@ KERNELS = {
     "iir_recursion": (CSRC + "probes.cu", "perf/scan_overhead_probe.py:135"),
     # the reference's key search is XLA, no Pallas kernel: its rounds
     "tea_search": (CSRC + "tea.cu", "tetraear_tpu/crypto/batch.py:87"),
+    # nor a kernel for the scores of its plaintexts: the host scores them
+    "key_score": (CSRC + "keyscore.cu",
+                  "none (host _score_decrypt, "
+                  "tetraear_tpu/frame/decoder.py:514)"),
     # the reference's speech channel decoder is XLA too: its lax.scan
     "viterbi_decode": (CSRC + "viterbi.cu",
                        "tetraear_tpu/voice/jviterbi.py:72"),
@@ -1094,25 +1098,42 @@ def tea_entry(tea: dict, path: list, counts: dict, floor: dict) -> dict:
     return entry
 
 
-def record_tea_calls(calls: list):
-    """Wrap crypto.batch.tea_decrypt_families, which batch_decrypt_frames
-    calls once a block for its pending frames (both cipher families), so
-    that the inputs of each deferred search land in ``calls`` as
-    (payloads, TEA1 keys, TEA2 keys); returns the function that undoes
-    the wrap."""
+def record_tea_calls(calls: list, scored: list | None = None):
+    """Wrap crypto.batch.tea_decrypt_families (the bruteforce tool's one
+    search) and tea_decrypt_scored, which batch_decrypt_frames calls once
+    a block for its pending frames (both cipher families), so that the
+    inputs of each search with keys land in ``calls`` as (payloads, TEA1
+    keys, TEA2 keys), and those of each tea_decrypt_scored call (one
+    key_score launch each) in ``scored`` as (payloads, lengths, TEA1
+    keys, TEA2 keys); returns the function that undoes the wraps."""
     import numpy as np
     from tetraear_tpu_torch.crypto import batch as tb
     orig = tb.tea_decrypt_families
+    orig_scored = tb.tea_decrypt_scored
 
     def recording(payloads, tea1_keys, tea2_keys, device=None):
         calls.append((np.array(payloads, np.uint8), list(tea1_keys),
                       list(tea2_keys)))
         return orig(payloads, tea1_keys, tea2_keys, device=device)
 
+    def recording_scored(payloads, lengths, tea1_keys, tea2_keys,
+                         device=None):
+        if scored is not None:
+            scored.append((np.array(payloads, np.uint8),
+                           np.array(lengths, np.int64), list(tea1_keys),
+                           list(tea2_keys)))
+        if tea1_keys or tea2_keys:
+            calls.append((np.array(payloads, np.uint8), list(tea1_keys),
+                          list(tea2_keys)))
+        return orig_scored(payloads, lengths, tea1_keys, tea2_keys,
+                           device=device)
+
     tb.tea_decrypt_families = recording
+    tb.tea_decrypt_scored = recording_scored
 
     def undo():
         tb.tea_decrypt_families = orig
+        tb.tea_decrypt_scored = orig_scored
     return undo
 
 
@@ -1304,6 +1325,186 @@ def parent_tea_path(pay, keys1, keys2, v0, v1, kw1, kw2, d_k, launch,
             "parent_call_ms": event_ms(both_calls, reps),
             "parent_round_trip_ms": [t[0], t[3]],
             "this_round_trip_ms": t[1:3]}
+
+
+# a busy block's deferred search at C=1024: 13 TEA1 + 12 TEA2 common
+# keys over 1,800 key frames of up to 64 bytes (random bytes, as the
+# noise frames that most key frames are)
+KEYSCORE_FIXED = (13, 12, 1800, 64)
+
+
+def keyscore_inputs(pay, lengths, keys1, keys2) -> tuple:
+    """What tea_decrypt_scored hands key_score for one search: the
+    plaintexts of the decrypt launch (none without keys), the payload
+    words and the lengths, on the card."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.crypto import batch as tb
+    v0, v1, kw1, kw2, lens = tb._upload(
+        [*tb._payload_to_words(pay),
+         tb._keys_to_words_tea1(tb._key_matrix(keys1, 10)),
+         tb._keys_to_words_tea2(tb._key_matrix(keys2, 16)),
+         np.asarray(lengths, np.uint32)], DEV)
+    if keys1 or keys2:
+        plains = tb.tea_decrypt_fused(v0, v1, kw1, kw2)
+    else:
+        plains = torch.empty((0, *pay.shape), dtype=torch.uint8,
+                             device=v0.device)
+    return plains, v0, v1, lens
+
+
+def keyscore_launch(plains, v0, v1, lens, out, what: str):
+    """This checkout's key_score launch alone (the C entry through
+    ctypes, output allocated before) as a function."""
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    if DEV == "cpu":                 # the rehearsal: nothing is built
+        return lambda: None
+    fn = ck.build().tt_key_score
+    args = (*ks.kernel_args(plains, v0, v1, lens, ks.table_on(plains.device),
+                            out), ck._stream(plains.device))
+
+    def launch():
+        if fn(*args):
+            fail(f"{what}: the launch failed")
+    return launch
+
+
+def keyscore_result(what: str, plains, v0, v1, lens, reps: int) -> dict:
+    """key_score on one search's inputs: its records bit-equal to
+    key_score_plain's on the host, the launch alone's equal to the
+    call's, the call without a synchronisation; the call and the launch
+    alone (CUDA events), the plain twin (host wall) and the bound (each
+    row's bytes read once, its 12-byte record written once)."""
+    import torch
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    rec = ks.key_score(plains, v0, v1, lens)
+    host = [t.cpu() for t in (plains, v0, v1, lens)]
+    t0 = time.perf_counter()
+    plain = ks.key_score_plain(*host, ks.table_on(torch.device("cpu")))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = rec.cpu()
+    if not torch.equal(got, plain):
+        fail(f"{what}: {(got != plain).any(dim=0).sum().item()} of "
+             f"{got.shape[1]} records differ from key_score_plain")
+    no_sync(what, lambda: ks.key_score(plains, v0, v1, lens))
+    out = torch.zeros_like(rec)
+    launch = keyscore_launch(plains, v0, v1, lens, out, what)
+    launch()
+    sync()
+    if DEV != "cpu" and not torch.equal(out, rec):
+        fail(f"{what}: the launch alone's records differ from the call's")
+    k, b, length = plains.shape
+    return {"keys": k, "payloads": b, "length": length,
+            "rows": got.shape[1],
+            "flagged": int(((got[ks.INFO] & ks.FLAG) != 0).sum()),
+            "max_abs_err": 0.0,
+            "ms": event_ms(lambda: ks.key_score(plains, v0, v1, lens), reps),
+            "launch_ms": event_ms(launch, max(reps, 50), queued=True),
+            "plain_ms": plain_ms,
+            **bound(nbytes(plains, v0, v1, lens, rec), 0.0)}
+
+
+def phase_keyscore(calls: list, reps: int) -> dict:
+    """key_score on the inputs of each deferred search a stream made
+    (record_tea_calls' ``scored``) and at a busy block's shape
+    (KEYSCORE_FIXED): bit-equal to its plain twin, no synchronisation,
+    timed; and the round trip tea_decrypt_scored (one upload, the two
+    launches, the records' fetch; host wall) beside tea_decrypt_families
+    (one upload, the decrypt launch, the plaintexts' fetch) on the same
+    inputs.  Returns {"path": a result a search, "fixed": ...}."""
+    import numpy as np
+    from tetraear_tpu_torch.crypto import batch as tb
+    if not calls:
+        fail("key_score: the stream made no deferred key search")
+    res = {"path": []}
+    for pay, lengths, keys1, keys2 in calls:
+        what = (f"key_score path K={len(keys1)}+{len(keys2)} "
+                f"B={pay.shape[0]} L={pay.shape[1]}")
+        r = keyscore_result(what, *keyscore_inputs(pay, lengths, keys1,
+                                                   keys2), reps)
+        r["round_trip_ms"] = wall_ms(
+            lambda: tb.tea_decrypt_scored(pay, lengths, keys1, keys2, DEV),
+            reps)
+        if keys1 or keys2:
+            r["families_round_trip_ms"] = wall_ms(
+                lambda: tb.tea_decrypt_families(pay, keys1, keys2, DEV),
+                reps)
+        res["path"].append(r)
+    k1, k2, b, length = KEYSCORE_FIXED
+    rng = np.random.default_rng(14)
+    pay = rng.integers(0, 256, (b, length), np.uint8)
+    lengths = 8 * rng.integers(1, length // 8 + 1, b)
+    keys1 = [bytes(rng.integers(0, 256, 10, np.uint8)) for _ in range(k1)]
+    keys2 = [bytes(rng.integers(0, 256, 16, np.uint8)) for _ in range(k2)]
+    res["fixed"] = keyscore_result(
+        f"key_score K={k1}+{k2} B={b} L={length}",
+        *keyscore_inputs(pay, lengths, keys1, keys2), reps)
+    res["fixed"]["round_trip_ms"] = wall_ms(
+        lambda: tb.tea_decrypt_scored(pay, lengths, keys1, keys2, DEV), reps)
+    res["fixed"]["families_round_trip_ms"] = wall_ms(
+        lambda: tb.tea_decrypt_families(pay, keys1, keys2, DEV), reps)
+    for r in res["path"] + [res["fixed"]]:
+        say(f"kernel key_score K={r['keys']} B={r['payloads']} "
+            f"L={r['length']} ({r['rows']} rows, {r['flagged']} left to "
+            f"the host): records bit-equal to the plain twin, no "
+            f"synchronisation; call {r['ms']:.4f} ms, launch alone "
+            f"{r['launch_ms']:.4f}, plain {r['plain_ms']:.1f} ms (host), "
+            f"library call none, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}; round trip tea_decrypt_scored "
+            f"{r['round_trip_ms']:.4f} ms"
+            + (f", tea_decrypt_families {r['families_round_trip_ms']:.4f}"
+               if "families_round_trip_ms" in r else ""))
+    return res
+
+
+def keyscore_entry(res: dict, counts: dict) -> dict:
+    """The kernels line's key_score entry: the largest deferred search of
+    the fused stream as its numbers, every search of the path and the
+    busy block's shape beside them; its launches the stream's own."""
+    src, replaces = KERNELS["key_score"]
+    r = max(res["path"], key=lambda p: p["rows"])
+    return {"name": "key_score", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts["key_score"],
+            "max_abs_err": 0.0, "ms": r["ms"], "launch_ms": r["launch_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": f"K={r['keys']} B={r['payloads']} L={r['length']}, "
+                     f"{r['rows']} rows (the deferred search of a block of "
+                     f"the fused stream)",
+            "path_launches": res["path"], "fixed": res["fixed"]}
+
+
+def stream_keyscore(reps: int) -> dict:
+    """--only keyscore: the fused stream's three blocks at C=1024 (the
+    capture of phase_stream, TEA carriers on) with its launches counted
+    from 0, then phase_keyscore on the searches it made."""
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    setup = fleet_setup(FS_SMALL if REHEARSE else FS_FLEET,
+                        8 if REHEARSE else 1024,
+                        2 ** 18 if REHEARSE else None, 3, seed=11,
+                        encrypted=True)
+    calls, scored = [], []
+    undo = record_tea_calls(calls, scored)
+    ck.reset_launches()
+    pipe = stream_pipeline(setup, 0, lambda f: None,
+                           **dict(FUSED_CFG, auto_decrypt=True))
+    try:
+        bl = setup["block_len"]
+        for i in range(len(setup["iq"]) // bl):
+            pipe.process_block(setup["iq"][i * bl:(i + 1) * bl])
+        sync()
+        counts = dict(ck.launches)
+    finally:
+        pipe.close()
+        undo()
+    need_launched("stream key_score", counts, ("tea_search", "key_score"))
+    if not REHEARSE and counts["key_score"] != len(scored):
+        fail(f"stream key_score: {counts['key_score']} key_score launches "
+             f"for {len(scored)} deferred searches")
+    entry = keyscore_entry(phase_keyscore(scored, reps), counts)
+    return {"kernel": entry,
+            "launches": {k: v for k, v in counts.items() if v}}
 
 
 def ops_inputs() -> dict:
@@ -1874,7 +2075,8 @@ def phase_decode_fleet(c: int, setup: dict) -> tuple:
     wall = time.time() - t0
     if pipe.runner.fused is None:
         fail("decode fleet: not on the fused path")
-    need_launched("decode fleet", counts, FUSED_KERNELS + ("tea_search",))
+    need_launched("decode fleet", counts,
+                  FUSED_KERNELS + ("tea_search", "key_score"))
     check_fleet_texts("decode fleet", frames, active)
     n_dec = check_enc_texts("decode fleet", frames, setup["encrypted"])
     say(f"decode fleet C={c}: {stats.frames} frames, {stats.crc_pass} CRC "
@@ -1968,7 +2170,8 @@ def phase_decode_fleet_afc(c: int, setup: dict, fused_frames: list,
     if nfft is None and not pipe.bank.channelizer.quantized:
         fail(f"{name}: expected the quantized extraction")
     need_launched(name, counts,
-                  kernels + (("tea_search",) if workers else ()))
+                  kernels + (("tea_search", "key_score") if workers
+                             else ()))
     check_fleet_texts(name, frames, active)
     if workers:
         check_enc_texts(name, frames, setup["encrypted"])
@@ -1999,14 +2202,15 @@ def stream_pipeline(setup: dict, workers: int, on_frame, on_audio=None,
 
 def phase_stream(name: str, c: int, setup: dict, offline: list,
                  kernels, workers: int = 0, tea_calls: list | None = None,
-                 **cfg) -> tuple:
+                 scored_calls: list | None = None, **cfg) -> tuple:
     """The live path on a fleet capture: Pipeline.process_block block by
     block, save_checkpoint after block 2, the rest on a fresh Pipeline
     after load_checkpoint.  Its frame list must equal run_offline's on
     the same capture (``offline``), the encrypted carriers' texts come
     back decrypted, and every kernel of the path (the key search too)
-    was launched.  ``tea_calls`` collects the inputs of each deferred
-    key search (record_tea_calls).  Returns (launches, wall s)."""
+    was launched.  ``tea_calls`` and ``scored_calls`` collect the inputs
+    of each deferred key search (record_tea_calls).  Returns (launches,
+    wall s)."""
     from tetraear_tpu_torch.dsp import cuda_kernels as ck
     path = ROOT / "build" / f"chip_smoke_{name}.npz"
     path.parent.mkdir(exist_ok=True)
@@ -2014,7 +2218,8 @@ def phase_stream(name: str, c: int, setup: dict, offline: list,
     blocks = [setup["iq"][i * bl:(i + 1) * bl]
               for i in range(len(setup["iq"]) // bl)]
     frames = []
-    undo = record_tea_calls(tea_calls) if tea_calls is not None else None
+    undo = (record_tea_calls(tea_calls, scored_calls)
+            if tea_calls is not None else None)
     ck.reset_launches()
     t0 = time.time()
     pipe = stream_pipeline(setup, workers, frames.append, **cfg)
@@ -2038,7 +2243,8 @@ def phase_stream(name: str, c: int, setup: dict, offline: list,
         if undo is not None:
             undo()
     path.unlink()
-    need_launched(f"stream {name}", counts, tuple(kernels) + ("tea_search",))
+    need_launched(f"stream {name}", counts,
+                  tuple(kernels) + ("tea_search", "key_score"))
     if frames_key(frames) != frames_key(offline):
         diff = next((a, b) for a, b in zip(frames_key(frames) + [None],
                                            frames_key(offline) + [None])
@@ -4701,7 +4907,7 @@ def phase_tools(seed: int, reps: int) -> dict:
                  f"frames differ from the CPU run's {len(logs['cpu'])}")
         need_launched("tools continuous-capture",
                       launches["continuous_capture"],
-                      ("frame_scan_even", "tea_search"))
+                      ("frame_scan_even", "tea_search", "key_score"))
         for _, _, text in TOOL_CIPHERS:
             got = sum(f.get("sds_message") == f"[TXT] {text}"
                       for f in logs["card"] if f.get("decrypted"))
@@ -4721,7 +4927,7 @@ def phase_tools(seed: int, reps: int) -> dict:
             "decrypt-capture")
         launches["decrypt_capture"] = counts
         need_launched("tools decrypt-capture", counts,
-                      ("frame_scan_even", "tea_search"))
+                      ("frame_scan_even", "tea_search", "key_score"))
         n_dec = out.count("[+] DECRYPTED")
         if n_dec < n_slots - 2 or not all(text in out
                                           for _, _, text in TOOL_CIPHERS):
@@ -5953,10 +6159,11 @@ def ui_launches(ui: dict, name: str) -> dict:
 
 
 def main_only(phases: list, card: str) -> int:
-    """--only ui,examples,bench: the named phases alone (after the
-    build), each result line printed; no result line."""
+    """--only ui,examples,bench,keyscore: the named phases alone (after
+    the build), each result line printed; no result line."""
     known = {"ui": lambda: phase_ui(seed=71), "examples": phase_examples,
-             "bench": lambda: phase_bench(card)}
+             "bench": lambda: phase_bench(card),
+             "keyscore": lambda: stream_keyscore(reps=5)}
     bad = [p for p in phases if p not in known]
     if bad:
         print(f"chip_smoke.py --only: unknown phases {bad}; known "
@@ -6081,10 +6288,11 @@ def main(argv: list) -> int:
         c_fleet, setup, fused_frames, nfft_fleet)
     counts_afc_w, afc_frames_w = phase_decode_fleet_afc(
         c_fleet, setup, fused_frames, nfft_fleet, workers=2)
-    tea_calls = []
+    tea_calls, scored_calls = [], []
     counts_stream, _ = phase_stream(
         "fused", c_fleet, setup, fused_frames, FUSED_KERNELS,
-        tea_calls=tea_calls, **dict(FUSED_CFG, auto_decrypt=True))
+        tea_calls=tea_calls, scored_calls=scored_calls,
+        **dict(FUSED_CFG, auto_decrypt=True))
     counts_stream_w, _ = phase_stream(
         "classic-workers", c_fleet, setup, afc_frames_w,
         ("frame_scan_even", "band_synth_y"), workers=2, frontend="fft",
@@ -6092,14 +6300,18 @@ def main(argv: list) -> int:
     if not REHEARSE and counts_stream["tea_search"] != len(tea_calls):
         fail(f"stream fused: {counts_stream['tea_search']} tea_search "
              f"launches for {len(tea_calls)} deferred searches")
+    if not REHEARSE and counts_stream["key_score"] != len(scored_calls):
+        fail(f"stream fused: {counts_stream['key_score']} key_score "
+             f"launches for {len(scored_calls)} deferred searches")
     tea_path = phase_tea_path(tea_calls, reps=5)
     tea_fl = tea_floor(reps=5)
+    keyscore = phase_keyscore(scored_calls, reps=5)
     pb_fleet = phase_process_block_timing("fleet", setup, fleet_fs, c_fleet,
                                           2, 0, None)
     pb_fleet_w = {w: phase_process_block_timing(
         "fleet", setup, fleet_fs, c_fleet, 2, 0, None, workers=w)
         for w in (2, 4)}
-    del fused_frames, afc_frames_w, setup, tea_calls
+    del fused_frames, afc_frames_w, setup, tea_calls, scored_calls
     say(f"[{time.time() - t_start:.0f} s] fleet decodes and streams at "
         f"{fleet_fs / 1e6:g} MHz done")
     t_voice = time.time()
@@ -6211,6 +6423,14 @@ def main(argv: list) -> int:
                           "bruteforce_keys")}
             entry["launches_ui"] = ui_launches(ui, name)
             kernels.append(entry)
+            continue
+        if name == "key_score":
+            kernels.append(dict(
+                keyscore_entry(keyscore, counts_stream),
+                launches_tools={t: tools["launches"][t].get("key_score", 0)
+                                for t in ("continuous_capture",
+                                          "decrypt_capture")},
+                launches_ui=ui_launches(ui, name)))
             continue
         if name == "viterbi_decode":
             kernels.append(dict(viterbi_entry(vit, vit_floor, vit_path,

@@ -183,18 +183,19 @@ def test_batch_decrypt_frames_matches_jax_and_host():
 def test_frame_layer_defers_and_searches_once_per_block(monkeypatch):
     """The frame layer sets defer_decrypt on its decoders, and a block's
     pending frames go to ONE key search covering both cipher families on
-    the layer's device (tests/unit/test_batch_decrypt.py
-    test_pipeline_uses_device_decrypt; the JAX package makes one search a
-    family); a lone frame stays on the host."""
+    the layer's device, its plaintexts scored there (tea_decrypt_scored;
+    tests/unit/test_batch_decrypt.py test_pipeline_uses_device_decrypt;
+    the JAX package makes one search a family); a lone frame stays on
+    the host."""
     calls = []
-    orig = cbatch.tea_decrypt_families
+    orig = cbatch.tea_decrypt_scored
 
-    def counting(payloads, tea1_keys, tea2_keys, device=None):
+    def counting(payloads, lengths, tea1_keys, tea2_keys, device=None):
         calls.append((np.atleast_2d(payloads).shape[0], len(tea1_keys),
                       len(tea2_keys), device))
-        return orig(payloads, tea1_keys, tea2_keys, device=device)
+        return orig(payloads, lengths, tea1_keys, tea2_keys, device=device)
 
-    monkeypatch.setattr(cbatch, "tea_decrypt_families", counting)
+    monkeypatch.setattr(cbatch, "tea_decrypt_scored", counting)
     layer = BatchedFrameDecoder(2, auto_decrypt=True, device=CPU)
     assert all(d.defer_decrypt for d in layer.decoders)
     frames = [dict(enc_frame(b"\x82EMERGENCY AT DOCK 5 EMERGENCY",
@@ -383,7 +384,9 @@ def test_scoring_feeds_the_scoring_decoders_parsers():
     decoders, which also reassemble their frames; the sharded layer
     scores on the parent's template decoders, and the carriers' decoders
     (in the workers) are left as they were.  So the two layers' parsers,
-    and what they reassemble next, differ: the same way in both packages."""
+    and what they reassemble next, differ: the same way in both packages.
+    The port's batched search leaves each scoring decoder's parser state
+    and stats as the host loop (each frame alone) leaves them."""
     from tetraear_tpu_torch.runtime.checkpoint import parser_state
     rng = np.random.default_rng(3)
     frames = [enc_frame(b"\x82EMERGENCY AT DOCK 5 EMERGENCY",
@@ -394,19 +397,28 @@ def test_scoring_feeds_the_scoring_decoders_parsers():
                     0, 256, 24, dtype=np.uint8))}}
                for n, alg in ((1, "TEA1"), (2, "TEA2"), (3, "TEA1"))]
 
-    def carriers_parsers(make_decoder, fn, in_process: bool, **kw):
+    def carriers_parsers(make_decoder, fn, in_process: bool,
+                         one_by_one=False, **kw):
         carriers = [make_decoder(auto_decrypt=True) for _ in range(2)]
         template = [make_decoder(auto_decrypt=True) for _ in range(2)]
         for d in carriers + template:
             d.defer_decrypt = True
-        fn(carriers if in_process else template,
-           [dict(copy.deepcopy(f), decryption_pending=True) for f in frames],
-           **kw)
+        out = [dict(copy.deepcopy(f), decryption_pending=True)
+               for f in frames]
+        for part in [[f] for f in out] if one_by_one else [out]:
+            fn(carriers if in_process else template, part, **kw)
+        carriers_parsers.scoring = [
+            (parser_state(d.protocol_parser), d.protocol_parser.stats)
+            for d in (carriers if in_process else template)]
         return [parser_state(d.protocol_parser) for d in carriers]
 
     for in_process in (True, False):
         port = carriers_parsers(TetraDecoder, cbatch.batch_decrypt_frames,
                                 in_process, device=CPU)
+        scoring = carriers_parsers.scoring
+        host = carriers_parsers(TetraDecoder, cbatch.batch_decrypt_frames,
+                                in_process, one_by_one=True, device=CPU)
+        assert (port, scoring) == (host, carriers_parsers.scoring)
         ref = carriers_parsers(JaxDecoder, jax_cbatch.batch_decrypt_frames,
                                in_process)
         assert port == ref, in_process
@@ -459,3 +471,520 @@ def test_sharded_layers_reassemble_noise_otherwise_in_both_packages():
     assert port_sh == jax_sh
     assert jax_in != jax_sh
     assert {f[0] for f in set(jax_in) ^ set(jax_sh)} == {0, 1, 2, 3}
+
+
+# -- the plaintexts' scores on the device (crypto/keyscore.py) -------------
+
+def _sds_term(plain: bytes) -> int:
+    """The SDS term of score_plaintext alone."""
+    from tetraear_tpu_torch.frame import sds
+    try:
+        text = sds.parse_sds_data(plain)
+    except Exception:
+        return 0
+    if not text:
+        return 0
+    if text.startswith("[BIN-ENC]"):
+        return -20
+    return 40 if text.startswith("[BIN]") else 120
+
+
+def _payload_rows(rows: list) -> tuple:
+    """(B, L) zero-padded payload matrix (L a multiple of 8) and (B,)
+    lengths of byte strings."""
+    lengths = np.array([len(r) for r in rows], np.int64)
+    width = max(8, int(lengths.max()) + (-int(lengths.max())) % 8)
+    mat = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        mat[i, :len(r)] = np.frombuffer(r, np.uint8)
+    return mat, lengths
+
+
+def _assert_records(plains: list, rec: np.ndarray) -> int:
+    """Each column of ``rec`` is score_plaintext's record of the plaintext
+    of ``plains`` at its position: exactly, or where flagged, all but the
+    SDS term and its data message.  Returns the flagged columns."""
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    from tetraear_tpu_torch.frame.decoder import score_plaintext
+    assert rec.shape == (3, len(plains)) and rec.dtype == np.int32
+    flagged = 0
+    for c, plain in enumerate(plains):
+        want = ks.record_of(score_plaintext(plain))
+        got = tuple(int(v) for v in rec[:, c])
+        if got[1] & ks.FLAG:
+            flagged += 1
+            assert got[1] & ks.COUNT == 0, plain.hex()
+            assert (got[0] + _sds_term(plain), got[1] & ~ks.FLAG,
+                    got[2]) == (want.score, want.info & ~ks.COUNT,
+                                want.network), plain.hex()
+        else:
+            assert got == tuple(want), plain.hex()
+    return flagged
+
+
+def _texty(rng, n: int) -> bytes:
+    """n bytes that walk parse_sds_data's branches: text with noise, a
+    leading PID or user type, UTF-8 pairs or cp1252 bytes, escapes,
+    trailing zeros, one repeated byte."""
+    alph = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuv"
+                         b"wxyz0123456789 .,\n\r\t@", np.uint8)
+    a = rng.choice(alph, n).astype(np.int64)
+    mix = rng.random(n) < rng.random() * 0.5
+    a[mix] = rng.integers(0, 256, int(mix.sum()))
+    kind = int(rng.integers(0, 4))
+    if kind == 1:
+        for j in range(0, n - 1, 5):
+            a[j], a[j + 1] = rng.integers(0xC2, 0xE0), rng.integers(0x80, 0xC0)
+    elif kind == 2:
+        a[rng.random(n) < 0.2] = rng.integers(0x80, 0xA0)
+    elif kind == 3:
+        a[rng.random(n) < 0.3] = 0x1B
+    a[0] = rng.choice([0x05, 0x07, 0x82, 0x03, 0x83, 0x0C, 0x01, 0x00,
+                       0xFF, 0x1B, int(a[0])])
+    if rng.random() < 0.3 and n > 1:
+        a[1] = 0
+    if rng.random() < 0.3 and n > 1:
+        a[-int(rng.integers(1, n)):] = 0
+    if rng.random() < 0.05:
+        a[:] = a[0]
+    return a.astype(np.uint8).tobytes()
+
+
+def _gsm_bits(*fields) -> bytes:
+    """(value, width) fields MSB first, zero-padded to whole bytes."""
+    bits = "".join(format(v, f"0{w}b") for v, w in fields)
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big")
+
+
+def _scorer_case(case: str) -> tuple:
+    """(payload rows, TEA1 keys, TEA2 keys) of one scorer case."""
+    from tetraear_tpu_torch.frame import sds
+    rng = np.random.default_rng(sum(map(ord, case)))
+    common = TetraDecoder().common_keys
+    none = ([], [])
+    if case == "common_keys":
+        rows = [bytes(rng.integers(0, 256, 8 * int(rng.integers(1, 6)),
+                                   dtype=np.uint8)) for _ in range(48)]
+        return rows, common["TEA1"], common["TEA2"]
+    if case == "secret_texts":
+        rows = []
+        for j, (alg, key) in enumerate(
+                [("TEA1", k) for k in common["TEA1"][:3]]
+                + [("TEA2", k) for k in common["TEA2"][:3]]):
+            msg = b"\x82" + f"SECRET {1000 + 37 * j:04d}".encode()
+            msg += b"\x00" * (-len(msg) % 8)
+            rows.append(TEADecryptor(key, alg).encrypt(msg))
+            rows.append(msg)
+        return rows, common["TEA1"][:3], common["TEA2"][:3]
+    if case == "uniform":
+        return [bytes([v]) * n for v in (0, 0xFF) for n in (8, 16, 40, 64)], \
+            *none
+    if case == "sds_branches":
+        gsm = sds.pack_gsm7("Meet at the north gate 0900 hrs")
+        rows = [b"\x05\x00\x0bHELLO WORLD\x00\x00\x00\x00\x00",
+                b"\x05\x00\x04\x80\x81\x82\x83\x84",            # not ASCII
+                b"\x05\x00\x01\x00\x00\x00\x00\x00",            # empty text
+                b"\x07\x00\x10" + gsm[:13],
+                b"\x82SECRET 1234\x00\x00\x00\x00",
+                b"\x82\x01\x02\x03\x04\x05\x06\x07",            # not text
+                b"\x03SECRET 1234\x00\x00\x00\x00",
+                b"\x03SECRET \xe9\xe9\xe9\x00\x00\x00\x00",      # not ASCII
+                b"\x83" + bytes(rng.integers(0, 256, 15, dtype=np.uint8)),
+                b"\x0c" + bytes(rng.integers(0, 256, 7, dtype=np.uint8)),
+                b"Plain text here\x00",                          # ASCII
+                b"Caf\xe9 au lait ok\x00",                        # latin-1
+                b"Na\x93ve \x94text\x94 ok",                      # cp1252
+                b"Na\x81ve \x94text\x94 ok",                      # no cp1252
+                b"Gr\xc3\xbc\xc3\x9fe aus Berlin!",               # UTF-8
+                b"AAAAAAAAAAAAAAAA",                              # one byte
+                b"\t\n \r\t\n \r",                                # blanks
+                gsm + b"\x00" * (-len(gsm) % 8),                  # GSM7
+                bytes(range(0x90, 0xA0)),                         # BIN-ENC
+                b"\x11\x22\x11\x22\x11\x22\x11\x22\x11\x22\x11\x22"
+                b"\x00\x00\x00\x00"]                              # BIN
+        return rows, *none
+    if case == "mac_types":
+        rows = []
+        for t in range(4):
+            for e in range(4):
+                rows.append(bytes([(t << 6) | (e << 4) | 0x5])
+                            + bytes(rng.integers(0, 256, 15,
+                                                 dtype=np.uint8)))
+        rows += [_gsm_bits((2, 2), (0, 2), (262, 10), (1, 14), (7, 6),
+                           (0xABCD, 16)),                 # SYSINFO
+                 _gsm_bits((2, 2), (0, 2), (199, 10), (1, 14), (7, 6)),
+                 _gsm_bits((2, 2), (0, 2), (262, 10), (1000, 14), (7, 6)),
+                 _gsm_bits((0, 2), (0, 3), (0xABCDE, 24), (63, 6),
+                           (0, 29)),                      # too long
+                 _gsm_bits((3, 2), (0, 3), (63, 6), (0, 53))]
+        return [r + b"\x00" * (-len(r) % 8) for r in rows], *none
+    if case == "short":
+        return [bytes(rng.integers(0, 256, n, dtype=np.uint8))
+                for n in range(1, 17)], *none
+    assert case == "texts"
+    rows = [_texty(rng, 8 * int(rng.integers(1, 9))) for _ in range(400)]
+    return rows, common["TEA1"][:2], common["TEA2"][:2]
+
+
+@pytest.mark.parametrize("case", ["common_keys", "secret_texts", "uniform",
+                                  "sds_branches", "mac_types", "short",
+                                  "texts"])
+def test_key_score_plain_equals_score_plaintext(case):
+    """keyscore.key_score's plain twin, through tea_decrypt_scored on the
+    CPU: every (key, payload) plaintext's record and every payload's own
+    (the BYPASS entry) equal score_plaintext's, the score, the data
+    message, the MAC fields and the network identity, the SDS term and
+    its message left to the host only where flagged.  The cases: random
+    payloads of 8-40 bytes under every common key of the plan; sent
+    "SECRET nnnn" texts under TEA1 and TEA2; all-0x00 and all-0xFF; each
+    leading branch of parse_sds_data; the four MAC types with and
+    without SYSINFO; rows too short for the MAC fields; text-like
+    payloads."""
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    rows, keys1, keys2 = _scorer_case(case)
+    mat, lengths = _payload_rows(rows)
+    rec, plains = cbatch.tea_decrypt_scored(mat, lengths, keys1, keys2,
+                                            device=CPU)
+    want = [TEADecryptor(key, alg).decrypt(mat[b].tobytes())[:lengths[b]]
+            for key, alg in [(k, "TEA1") for k in keys1]
+            + [(k, "TEA2") for k in keys2] for b in range(len(rows))]
+    assert plains.shape == (len(keys1) + len(keys2), *mat.shape)
+    flagged = _assert_records(want + rows, rec)
+    info = rec[ks.INFO, -len(rows):]
+    if case == "sds_branches":
+        # the GSM-7 user type and the UTF-8 text are the host's alone
+        assert flagged == 2 and info[3] & ks.FLAG and info[14] & ks.FLAG
+        assert info[[0, 4, 6, 10, 11, 12, 17]].tolist() == [
+            ks.COUNT | (i & ~ks.COUNT) for i in info[[0, 4, 6, 10, 11, 12,
+                                                      17]].tolist()]
+    if case == "mac_types":
+        assert info[16] & ks.SYSINFO and rec[ks.NETWORK, -len(rows) + 16] \
+            == 262 | (1 << 10) | (7 << 24)
+        assert not info[17] & ks.MAC_OK and not info[18] & ks.MAC_OK
+        assert not info[19] & ks.MAC_OK and not info[20] & ks.MAC_OK
+    if case == "secret_texts":
+        assert (rec[ks.SCORE] >= 150).sum() >= 12
+
+
+def _host_kernel(tmp_path_factory):
+    """dsp/csrc/keyscore.cu built with g++ against a shim of the CUDA names
+    it uses (a CTA's threads as threads, __syncthreads a barrier, the
+    launch a loop over CTAs): the kernel's own code on the CPU."""
+    import ctypes
+    import shutil
+    import subprocess
+    from pathlib import Path
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found")
+    src = (Path(cbatch.__file__).resolve().parents[1] / "dsp" / "csrc"
+           / "keyscore.cu").read_text()
+    launch = "key_score_kernel<<<grid, kCta, 0, (cudaStream_t)stream>>>(a);"
+    assert src.count(launch) == 1
+    src = src.replace(launch,
+                      "tt_launch(grid, kCta, [&] { key_score_kernel(a); });")
+    src = src.replace('#include "common.cuh"', '#include "shim.h"')
+    d = tmp_path_factory.mktemp("keyscore_host")
+    (d / "shim.h").write_text(_KEYSCORE_SHIM)
+    (d / "keyscore.cpp").write_text(src)
+    so = d / "libkeyscore.so"
+    r = subprocess.run(["g++", "-O1", "-std=c++17", "-fPIC", "-shared",
+                        "-pthread", "-I", str(d), "-o", str(so),
+                        str(d / "keyscore.cpp")],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    lib = ctypes.CDLL(str(so))
+    vp, cu = ctypes.c_void_p, ctypes.c_uint
+    lib.tt_key_score.argtypes = [vp] * 5 + [cu] * 3 + [vp, vp]
+    lib.tt_key_score.restype = ctypes.c_int
+    return lib
+
+
+_KEYSCORE_SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <condition_variable>
+#include <cstddef>
+#include <cstdint>
+#include <mutex>
+#include <thread>
+#include <vector>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(x)
+struct tt_dim3 { unsigned x; };
+static thread_local tt_dim3 blockIdx, threadIdx;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+using std::max;
+using std::min;
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+inline uint32_t __brev(uint32_t x) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+struct tt_barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, count = 0;
+  long gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    const long g = gen;
+    if (++count == n) { count = 0; gen++; cv.notify_all(); }
+    else cv.wait(lk, [&] { return gen != g; });
+  }
+};
+static tt_barrier tt_block_bar;
+inline void __syncthreads() { tt_block_bar.wait(); }
+template <class F>
+inline void tt_launch(unsigned grid, unsigned block, F body) {
+  tt_block_bar.n = (int)block;
+  for (unsigned b = 0; b < grid; b++) {
+    std::vector<std::thread> th;
+    for (unsigned t = 0; t < block; t++)
+      th.emplace_back([&, b, t] { blockIdx.x = b; threadIdx.x = t; body(); });
+    for (auto& x : th) x.join();
+  }
+}
+"""
+
+
+def test_key_score_kernel_source_on_the_host_equals_plain(tmp_path_factory):
+    """The kernel's own code, built on the host, writes the plain twin's
+    records bit for bit: text-like and random payloads (8 to 64 bytes)
+    under 3 TEA1 and 2 TEA2 keys, one key's plaintexts replaced by the
+    payloads' own texts."""
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    lib = _host_kernel(tmp_path_factory)
+    rng = np.random.default_rng(23)
+    rows = [_texty(rng, 8 * int(rng.integers(1, 9))) if i % 2 else
+            bytes(rng.integers(0, 256, 8 * int(rng.integers(1, 9)),
+                               dtype=np.uint8)) for i in range(300)]
+    mat, lengths = _payload_rows(rows)
+    keys1 = [bytes(rng.integers(0, 256, 10, dtype=np.uint8))
+             for _ in range(3)]
+    keys2 = [bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+             for _ in range(2)]
+    v0, v1, kw1, kw2, lens = cbatch._upload(
+        [*cbatch._payload_to_words(mat),
+         cbatch._keys_to_words_tea1(cbatch._key_matrix(keys1, 10)),
+         cbatch._keys_to_words_tea2(cbatch._key_matrix(keys2, 16)),
+         lengths.astype(np.uint32)], CPU)
+    plains = cbatch.tea_decrypt_fused(v0, v1, kw1, kw2).clone()
+    plains[0] = torch.from_numpy(mat)
+    want = ks.key_score(plains, v0, v1, lens).numpy()
+    assert (want[ks.INFO] & ks.FLAG).any() and (want[ks.INFO]
+                                                & ks.COUNT).any()
+    for k in (5, 0):
+        got = np.zeros((3, (k + 1) * len(rows)), np.int32)
+        table = ks.table_on(torch.device(CPU))
+        assert lib.tt_key_score(
+            plains.numpy().ctypes.data, v0.numpy().ctypes.data,
+            v1.numpy().ctypes.data, lens.numpy().ctypes.data,
+            table.numpy().ctypes.data, k, len(rows), mat.shape[1] // 8,
+            got.ctypes.data, None) == 0
+        ref = want if k else ks.key_score(plains[:0], v0, v1, lens).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("start", ["fresh", "encrypted_chain",
+                                   "clear_chain", "restored"])
+def test_replay_score_effects_equals_scoring_on_the_parser(start):
+    """replay_score_effects from the twin's records (MacParser's
+    buffer_keeps and replay_mac_fields) leaves a parser (its
+    parser_state, network identity and stats) as applying each
+    plaintext's score_plaintext effects in turn does, over 300 random
+    runs of 1 to 20 plaintexts of every MAC type, fetching the bytes of
+    only the plaintexts whose data the fragment buffer keeps."""
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    from tetraear_tpu_torch.frame.burst import bytes_to_bits
+    from tetraear_tpu_torch.frame.decoder import (apply_score_effects,
+                                                  replay_score_effects,
+                                                  score_plaintext)
+    from tetraear_tpu_torch.frame.mac import MacParser, extract_mac_fields
+    from tetraear_tpu_torch.runtime.checkpoint import (parser_state,
+                                                       restore_parser)
+    rng = np.random.default_rng(len(start))
+    sysinfo = _gsm_bits((2, 2), (0, 2), (262, 10), (1, 14), (7, 6))
+    pool = [bytes([(t << 6) | (int(rng.integers(0, 4)) << 4)])
+            + bytes(rng.integers(0, 256, 8 * int(rng.integers(1, 5)) - 1,
+                                 dtype=np.uint8))
+            for t in rng.integers(0, 4, 400)]
+    pool += [sysinfo + b"\x00" * (-len(sysinfo) % 8), b"\x82SECRET 1234\x00"
+             b"\x00\x00\x00"] + [_texty(rng, 16) for _ in range(40)]
+    mat, lengths = _payload_rows(pool)
+    v0, v1, lens = cbatch._upload([*cbatch._payload_to_words(mat),
+                                   lengths.astype(np.uint32)], CPU)
+    rec = ks.key_score(torch.empty((0, *mat.shape), dtype=torch.uint8),
+                       v0, v1, lens).numpy().copy()
+    # the route's records: the host's where the kernel flagged
+    for c in np.flatnonzero(rec[ks.INFO] & ks.FLAG):
+        rec[:, c] = ks.record_of(score_plaintext(pool[c]))
+    assert (rec[ks.INFO] & ks.COUNT).any()
+
+    def parser():
+        p = MacParser()
+        if start == "encrypted_chain":
+            p.apply_mac_fields(extract_mac_fields(bytes_to_bits(
+                bytes([0x10]) + bytes(15))))
+        elif start == "clear_chain":
+            p.apply_mac_fields(extract_mac_fields(bytes_to_bits(
+                bytes([0x00, 0x12, 0x34]) + bytes(13))))
+        elif start == "restored":
+            restore_parser(p, {"mcc": 1, "mnc": 2, "la": None,
+                               "colour_code": 3, "fragment": "abcd",
+                               "fragment_metadata": {}})
+        return p
+
+    for _ in range(300):
+        idx = rng.integers(0, len(pool), int(rng.integers(1, 21)))
+        host, dev = parser(), parser()
+        for i in idx:
+            apply_score_effects(host, score_plaintext(pool[i]))
+        asked = []
+
+        def fields_at(j, _idx=idx):
+            asked.append(j)
+            return extract_mac_fields(bytes_to_bits(pool[_idx[j]]))
+
+        info, network = rec[ks.INFO, idx], rec[ks.NETWORK, idx]
+        kept, (last,) = MacParser.buffer_keeps(ks.pdu_types(info)[None])
+        replay_score_effects(dev, int(np.count_nonzero(info & ks.COUNT)),
+                             ks.pdus_of(info, network), int(last),
+                             fields_at)
+        assert (parser_state(dev), dev.stats) == (parser_state(host),
+                                                  host.stats)
+        assert (dev.mcc, dev.mnc, dev.colour_code) == (
+            host.mcc, host.mnc, host.colour_code)
+        assert asked == np.flatnonzero(kept[0]).tolist()
+
+
+def _route_frames(case: str) -> tuple:
+    """(frames, decoders' set-up) of a route case: key frames on
+    carriers, with noise payloads of 8 to 64 bytes among SDS texts sent
+    under common keys (an early exit at 150 or more), readable clear
+    payloads (BYPASS wins) and unknown keys."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n_car = {"many_carriers": 16}.get(case, 4)
+    common = TetraDecoder().common_keys
+    frames = []
+    for n in range(120 if case == "many_carriers" else 60):
+        alg = ("TEA1", "TEA2", "TEA3")[n % 3]
+        if case == "best_below_80":
+            data = bytes(rng.integers(0, 3 if n % 4 else 1,
+                                      8 * int(rng.integers(1, 3)),
+                                      dtype=np.uint8))
+        else:
+            data = bytes(rng.integers(0, 256, 8 * int(rng.integers(1, 9)),
+                                      dtype=np.uint8))
+        frames.append({"number": n, "carrier": int(rng.integers(0, n_car)),
+                       "bits": np.zeros(510, np.uint8), "encrypted": True,
+                       "encryption_algorithm": alg, "key_id": "0",
+                       "mac_pdu": {"data": data}})
+    real = [enc_frame(b"\x82RELOCATE NOW TO GATE SEVEN",
+                      common["TEA1"][0].hex(), "TEA1", 0),
+            enc_frame(b"\x82SECRET 1234", common["TEA2"][1].hex(), "TEA2", 0),
+            enc_frame(b"\x82ALL UNITS REPORT STATUS CODE",
+                      "11111111111111111111", "TEA1", 0),
+            {"number": 0, "carrier": 0, "bits": np.zeros(510, np.uint8),
+             "encrypted": True, "encryption_algorithm": "TEA1",
+             "key_id": "0",
+             "mac_pdu": {"data": b"\x82READABLE CLEAR TEXT HERE\x00"}}]
+    for j, at in enumerate(rng.choice(len(frames), 12, replace=False)):
+        frames.insert(int(at), dict(real[j % len(real)],
+                                    number=1000 + j,
+                                    carrier=int(rng.integers(0, n_car))))
+    return frames, n_car
+
+
+@pytest.mark.parametrize("case", ["many_carriers", "early_exit",
+                                  "best_below_80", "invalid_keys",
+                                  "template"])
+def test_batched_route_equals_host_loop_after_every_frame(case,
+                                                          monkeypatch):
+    """batch_decrypt_frames on the CPU (the scores from key_score's plain
+    twin, the effects replayed) against the host loop (each frame
+    alone: _select_decrypt and _post_decrypt_sds in turn): every frame
+    field for field, and after every frame the scoring decoder's
+    parser_state and stats; the same plan entries scored and frames
+    decrypted.  Cases: 16 carriers; SDS texts under common keys (the
+    loop stops at 150 or more); frames whose best stays under 80 (no
+    common keys, low payloads); keys of the wrong length for their
+    family (the loop skips them); the sharded layer's template
+    decoders."""
+    import copy
+    from tetraear_tpu_torch.frame import decoder as decoder_mod
+    from tetraear_tpu_torch.frame.parallel import _LazyDecoders
+    from tetraear_tpu_torch.runtime import profiling as prof
+    from tetraear_tpu_torch.runtime.checkpoint import parser_state
+    frames, n_car = _route_frames(case)
+
+    def decoders():
+        if case == "template":
+            lazy = _LazyDecoders(None, True, ())
+            decs = [lazy[i] for i in range(n_car)]
+        else:
+            decs = [TetraDecoder(auto_decrypt=True) for _ in range(n_car)]
+            for d in decs:
+                d.defer_decrypt = True
+        if case == "invalid_keys":
+            decs[1].user_keys += [("TEA1", bytes(range(16))),
+                                  ("TEA2", bytes(range(10))),
+                                  ("TEA4", bytes(range(16)))]
+            decs[2].user_keys += [("TEA2", bytes(range(10)))]
+        if case == "best_below_80":
+            for d in decs:
+                d.common_keys = {}
+        return decs
+
+    snaps = []
+    real_replay = decoder_mod.replay_score_effects
+
+    def snapping(parser, *a):
+        real_replay(parser, *a)
+        snaps[-1].append((parser_state(parser), dict(parser.stats)))
+
+    monkeypatch.setattr(decoder_mod, "replay_score_effects", snapping)
+
+    def run(one_by_one: bool):
+        decs = decoders()
+        out = [dict(copy.deepcopy(f), decryption_pending=True)
+               for f in frames]
+        snaps.append([])
+        before = dict(prof.tracer().counter_totals)
+        for f in out:
+            if one_by_one:
+                cbatch.batch_decrypt_frames(decs, [f], device=CPU)
+                p = decs[f["carrier"]].protocol_parser
+                snaps[-1].append((parser_state(p), dict(p.stats)))
+        if not one_by_one:
+            cbatch.batch_decrypt_frames(decs, out, device=CPU)
+        after = prof.tracer().counter_totals
+        return out, {k: after[k] - before.get(k, 0) for k in after}
+
+    host, host_counts = run(True)
+    port, port_counts = run(False)
+    assert len(snaps[0]) == len(snaps[1]) == len(frames)
+    for i, (h, p) in enumerate(zip(host, port)):
+        assert {k: v for k, v in p.items() if k != "bits"} == {
+            k: v for k, v in h.items() if k != "bits"}, i
+        assert snaps[1][i] == snaps[0][i], (i, h["carrier"])
+    for k in ("keys_scored", "decrypted"):
+        assert port_counts[k] == host_counts[k], k
+    assert 0 <= port_counts["key_fallback"] <= port_counts["keys_scored"]
+    assert any(st is not None for st, _ in snaps[1])
+    if case == "early_exit":
+        assert sum("RELOCATE NOW" in (f.get("sds_message") or "")
+                   or "SECRET 1234" in (f.get("sds_message") or "")
+                   for f in port) >= 4
+        assert any(f.get("bypass_clear") for f in port)
+    if case == "best_below_80":
+        assert any(not f["decrypted"] and 0 < f["best_score"] < 80
+                   for f in port)
+        assert any(f["best_key"] is None for f in port)

@@ -447,3 +447,104 @@ def test_acelp_decode_matches_plain_and_cpp_on_card(smoke):
     sizes = sorted(s for s in res if isinstance(s, int))
     assert sizes == list(smoke.V2_SIZES)
     assert all(res[s]["bound_ms"] > 0 for s in sizes)
+
+
+@pytest.mark.cuda
+def test_key_score_matches_plain_on_card(smoke):
+    """A block's worth of the deferred key search (13 TEA1 + 12 TEA2 keys
+    x 1,800 payloads of 8 to 64 bytes, noise with text-like rows among
+    them: 46,800 records): the key_score launch writes its plain twin's
+    records bit for bit, and the decrypt launch before it (tea_search)
+    its plain version's plaintexts; one launch each."""
+    import numpy as np
+    from tetraear_tpu_torch.crypto import batch as cbatch
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    from tetraear_tpu_torch.dsp import cuda_kernels as ck
+    rng = np.random.default_rng(31)
+    b = 1800
+    lengths = 8 * rng.integers(1, 9, b)
+    pay = np.zeros((b, 64), np.uint8)
+    alph = np.frombuffer(b"ABCDEFGHIJ klmnopqrst 0123456789.,\n", np.uint8)
+    for i, n in enumerate(lengths):
+        row = rng.integers(0, 256, n) if i % 3 else rng.choice(alph, n)
+        if i % 7 == 0:
+            row[0] = rng.choice([0x05, 0x07, 0x82, 0x03, 0x83, 0x0C])
+        pay[i, :n] = row
+    keys1 = [bytes(rng.integers(0, 256, 10, dtype=np.uint8))
+             for _ in range(13)]
+    keys2 = [bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+             for _ in range(12)]
+    ck.reset_launches()
+    rec, plains = cbatch.tea_decrypt_scored(pay, lengths, keys1, keys2,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    assert ck.launches["tea_search"] == 1 and ck.launches["key_score"] == 1
+    want_rec, want_plains = cbatch.tea_decrypt_scored(pay, lengths, keys1,
+                                                      keys2, device="cpu")
+    assert rec.shape == (3, 26 * b)
+    np.testing.assert_array_equal(rec, want_rec)
+    assert torch.equal(plains.cpu(), want_plains)
+    assert (rec[ks.INFO] & ks.COUNT).any() and (rec[ks.INFO]
+                                                & ks.MAC_OK).any()
+
+
+@pytest.mark.cuda
+def test_key_search_route_equals_host_loop_on_a_busy_block(smoke,
+                                                           monkeypatch):
+    """One live block of the benchmark cell fleet1024.allslots.busy's
+    traffic (after its warm-up blocks): the block's deferred key search
+    through the card's route (tea_decrypt_scored, the selection, the
+    replayed effects) gives the frames, and leaves every scoring
+    decoder's parser state and stats, that the host loop (each frame
+    alone, on copies of the decoders) gives; the records of the block's
+    search equal the plain twin's."""
+    import copy
+    import sys
+    import numpy as np
+    from tetraear_tpu_torch.crypto import batch as cbatch
+    from tetraear_tpu_torch.runtime.checkpoint import parser_state
+    sys.path.insert(0, str(REPO / "benchmark"))
+    from tebench import cells, harness
+    cell = cells.load("fleet1024.allslots.busy", REPO / "BENCHMARK.json")
+    cfg, tr = cell.config, cell.traffic
+    host_iq, _ = harness.make_capture(cfg, tr, 2718281828, "cuda")
+    pipe = harness.build_pipeline(cfg, "cuda")
+    warm = int(cfg["warmup_blocks"])
+    for i in range(warm):
+        pipe.process_block(host_iq[i])
+    route = cbatch.batch_decrypt_frames
+    scored = cbatch.tea_decrypt_scored
+    seen = {"searches": [], "frames": 0}
+
+    def recording(payloads, lengths, keys1, keys2, device=None):
+        got = scored(payloads, lengths, keys1, keys2, device=device)
+        seen["searches"].append((got.records, scored(
+            payloads, lengths, keys1, keys2, device="cpu").records))
+        return got
+
+    def checked(decoders, frames, device=None):
+        pend = [f for f in frames if f.get("decryption_pending")]
+        cars = sorted({f.get("carrier", 0) for f in pend})
+        twins = {c: copy.deepcopy(decoders[c]) for c in cars}
+        host = copy.deepcopy(pend)
+        for f in host:
+            route(twins, [f], device=device)
+        route(decoders, frames, device=device)
+        strip = ("bits", "soft_symbols")
+        for h, p in zip(host, pend):
+            assert {k: v for k, v in p.items() if k not in strip} == {
+                k: v for k, v in h.items() if k not in strip}
+        for c in cars:
+            a, b = decoders[c].protocol_parser, twins[c].protocol_parser
+            assert (parser_state(a), a.stats) == (parser_state(b), b.stats)
+        seen["frames"] += len(pend)
+
+    monkeypatch.setattr(cbatch, "batch_decrypt_frames", checked)
+    monkeypatch.setattr(cbatch, "tea_decrypt_scored", recording)
+    try:
+        pipe.process_block(host_iq[warm])
+    finally:
+        pipe.close()
+    assert seen["frames"] > 1000 and len(seen["searches"]) == 1
+    for card, cpu in seen["searches"]:
+        np.testing.assert_array_equal(card, cpu)

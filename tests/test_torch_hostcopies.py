@@ -35,8 +35,20 @@ COPIES = {
     "frame/crc.py": (),
     "frame/lip.py": (),
     "frame/sds.py": (),
-    "frame/mac.py": (),
-    "frame/decoder.py": (),
+    # the MAC state machine replayed from a summary of each PDU, for
+    # the deferred key search's scores (crypto/batch.py)
+    "frame/mac.py": ("MacParser.buffer_keeps",
+                     "MacParser.replay_mac_fields"),
+    # the score is split into a pure part and its effects on the
+    # scoring decoder's parser, and the selection's result into its own
+    # method, so the deferred key search scores on the device and
+    # replays the effects (crypto/batch.py, crypto/keyscore.py)
+    "frame/decoder.py": ("<module statements>", "Scored",
+                         "score_plaintext", "apply_score_effects",
+                         "replay_score_effects",
+                         "TetraDecoder._score_decrypt",
+                         "TetraDecoder._select_decrypt",
+                         "TetraDecoder._apply_decrypt"),
     "frame/aggregator.py": (),
     "frame/structure.py": (),
     "frame/validator.py": (),

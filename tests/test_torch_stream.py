@@ -182,17 +182,17 @@ def test_process_block_fused_matches_jax_checkpoint(fused, monkeypatch):
     aux across) and its blocks 1-3 equal JAX's continuation; the TEA1
     carrier's text comes back decrypted, through one key search a block
     covering both cipher families (each block holds several encrypted
-    frames)."""
+    frames; tea_decrypt_scored: the decrypt and the scores)."""
     from tetraear_tpu_torch.crypto import batch as cbatch
     searches = []
-    orig = cbatch.tea_decrypt_families
+    orig = cbatch.tea_decrypt_scored
 
-    def counting(payloads, tea1_keys, tea2_keys, device=None):
+    def counting(payloads, lengths, tea1_keys, tea2_keys, device=None):
         searches.append((len(payloads), len(tea1_keys), len(tea2_keys),
                          device))
-        return orig(payloads, tea1_keys, tea2_keys, device=device)
+        return orig(payloads, lengths, tea1_keys, tea2_keys, device=device)
 
-    monkeypatch.setattr(cbatch, "tea_decrypt_families", counting)
+    monkeypatch.setattr(cbatch, "tea_decrypt_scored", counting)
     blocks, want, ckpt = fused
     pipe = Pipeline(PipelineConfig(device=CPU, **FUSED_CFG))
     assert pipe.runner.fused is not None

@@ -132,17 +132,18 @@ def test_decrypt_capture_reports_equal(tmp_path):
 
 def test_decrypt_capture_searches_on_the_device_path(tmp_path, monkeypatch):
     """The port's decrypt-capture finishes a block's pending frames with
-    one key search for both families (tea_decrypt_families)."""
+    one key search for both families, its plaintexts scored there
+    (tea_decrypt_scored)."""
     from tetraear_tpu_torch.crypto import batch
     _encrypted_capture("tetraear_tpu_torch", tmp_path / "enc.cfile")
     calls = []
-    real = batch.tea_decrypt_families
+    real = batch.tea_decrypt_scored
 
     def counted(*a, **k):
         calls.append(k.get("device"))
         return real(*a, **k)
 
-    monkeypatch.setattr(batch, "tea_decrypt_families", counted)
+    monkeypatch.setattr(batch, "tea_decrypt_scored", counted)
     rc, out = _run("tetraear_tpu_torch", "decrypt_capture",
                    ["--source", str(tmp_path / "enc.cfile")])
     assert rc == 0 and "DECRYPTED" in out

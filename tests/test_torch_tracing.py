@@ -49,8 +49,9 @@ PARENT = {"ingest": "block", "step": "block", "fetch": "block",
                                       "parse", "decode", "soft_rows",
                                       "key_plan", "tea", "key_score")}}
 COUNTERS = ("hits", "candidates", "frames", "key_frames", "keys_scored",
-            "decrypted", "tea_rows", "voice_candidates", "v1_rows",
-            "v2_slots", "v2_launches", "v2_evictions", "launches")
+            "key_fallback", "decrypted", "tea_rows", "voice_candidates",
+            "v1_rows", "v2_slots", "v2_launches", "v2_evictions",
+            "launches")
 KEY_FIELDS = ("carrier", "stream_symbol", "position", "burst_crc", "type",
               "sds_message", "encrypted", "decrypted", "key_used",
               "decrypted_bytes", "tdma", "has_voice")
@@ -280,6 +281,7 @@ def test_pipeline_block_spans_and_counters(runs):
         assert c["candidates"] <= c["hits"]
         assert c["key_frames"] >= 2 and c["tea_rows"] >= 2 * c["key_frames"]
         assert c["decrypted"] <= c["key_frames"] <= c["keys_scored"]
+        assert 0 <= c["key_fallback"] <= c["keys_scored"]
         assert c["v1_rows"] == c["voice_candidates"] >= 2
         # the voice carriers on one decoder slot: a launch a carrier, and
         # each evicts the one before

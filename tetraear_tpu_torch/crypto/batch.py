@@ -7,13 +7,16 @@ product is one launch of the hand-written ``tea_search`` kernel
 payload) pair (search, the score in registers), so a fleet bruteforces
 every encrypted frame of a block without a Python loop over keys.  The
 live path's deferred decryption (``batch_decrypt_frames``) covers both
-cipher families with one upload, one launch and one fetch a block
-(``tea_decrypt_families``).
+cipher families with one upload, the decrypt launch, the launch that
+scores every plaintext as the host would (crypto/keyscore.py) and one
+fetch of the scores a block (``tea_decrypt_scored``); the host selects
+from the scores and replays their effects on the decoders' parsers.
 
 Semantics are identical to ``crypto.tea`` (itself bit-exact vs the
 reference ciphers) and to the JAX package's functions of the same names.
-The host helpers (key and payload word packing, the key plan and
-selection loop of ``batch_decrypt_frames``) keep the original's code.
+The host helpers (key and payload word packing, the key plan) keep the
+original's code; the selection of ``batch_decrypt_frames`` gives what
+the original's loop gives, from the device's scores.
 
 Each public function takes ``device`` (``None``: the card; ``"cpu"``
 runs the kernels' plain versions).  ``tea_decrypt_batch`` and
@@ -408,32 +411,68 @@ def tea_decrypt_families(payloads, tea1_keys, tea2_keys,
         [*_payload_to_words(payloads),
          _keys_to_words_tea1(_key_matrix(tea1_keys, 10)),
          _keys_to_words_tea2(_key_matrix(tea2_keys, 16))], device)
-    out = tea_decrypt_fused(v0, v1, kw1, kw2)
-    if out.device.type == "cpu":
-        return out.numpy()
-    # the fetch through a pinned buffer (the caching host allocator keeps
-    # it across calls): a direct copy, not staged through pageable memory
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out)
-    return host.numpy()
+    return _fetch(tea_decrypt_fused(v0, v1, kw1, kw2))
+
+
+class ScoredSearch(NamedTuple):
+    """tea_decrypt_scored's result: the (3, (K + 1) B) int32 records of
+    keyscore.key_score on the host, and the (K, B, L) plaintexts where
+    they were made (the device's, for the rows the host fetches later)."""
+    records: np.ndarray
+    plains: torch.Tensor
+
+
+def tea_decrypt_scored(payloads, lengths, tea1_keys, tea2_keys,
+                       device=None) -> ScoredSearch:
+    """tea_decrypt_families with every plaintext and every payload scored
+    as TetraDecoder._score_decrypt scores it, in one device round trip:
+    one upload (payload words, both families' key words, the lengths),
+    the decrypt launch (none without keys), the key_score launch after
+    it on the same stream, and one fetch, of the records alone.
+
+    payloads: (B, L) uint8 (L % 8 == 0), row b scored over its first
+    lengths[b] bytes; keys as tea_decrypt_families takes them (both
+    families may be empty here)."""
+    from tetraear_tpu_torch.crypto import keyscore
+    payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
+    v0, v1, kw1, kw2, lens = _upload(
+        [*_payload_to_words(payloads),
+         _keys_to_words_tea1(_key_matrix(tea1_keys, 10)),
+         _keys_to_words_tea2(_key_matrix(tea2_keys, 16)),
+         np.asarray(lengths, np.uint32)], device)
+    if kw1.shape[0] + kw2.shape[0]:
+        plains = tea_decrypt_fused(v0, v1, kw1, kw2)
+    else:
+        plains = torch.empty((0, *payloads.shape), dtype=torch.uint8,
+                             device=v0.device)
+    return ScoredSearch(_fetch(keyscore.key_score(plains, v0, v1, lens)),
+                        plains)
 
 
 def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
     """Finish deferred decryption for a block's frames with ONE device
-    keys x payloads search covering both cipher families.
+    keys x payloads search covering both cipher families, every
+    plaintext scored on the device.
 
-    Each frame's key plan and selection loop are EXACTLY the host
-    _decrypt_frame path (frame.decoder._build_key_plan /
-    _select_decrypt); only the TEA rounds move to the device.  Payloads
-    are zero-padded to a common width — harmless for ECB, each frame's
-    plaintext is truncated back to its own length.
+    Each frame's key plan, scores, selection and early exit are EXACTLY
+    the host _decrypt_frame path's (frame.decoder._build_key_plan /
+    _select_decrypt), and so are its scoring's effects on the scoring
+    decoder's parser: ``_score_on_device`` scores every plaintext in one
+    launch of ``keyscore.key_score`` beside the decrypt launch, selects
+    from the scores and replays the effects in plan order.  A lone
+    frame stays on the host loop (cheaper than a device round trip).
+    Payloads are zero-padded to a common width — harmless for ECB, each
+    plaintext is scored over its frame's own length.
 
-    Traced as ``key_plan`` (plans, key and payload matrices), ``tea``
-    (upload, launch, fetch) and ``key_score`` (the selection loops), and
-    counted: ``key_frames`` (frames with a plan), ``tea_rows`` (K x B of
-    the launch), ``keys_scored`` (plan entries scored through the last
-    plaintext each frame's loop asked for, BYPASS entries among them)
-    and ``decrypted``.
+    Traced as ``key_plan`` (plans, key and payload matrices, the entry
+    matrix), ``tea`` (the device round trips: upload, the two launches
+    and the records' fetch; the fetches of the plaintexts the host
+    reads) and ``key_score`` (the host's part of the selection,
+    _post_decrypt_sds, the replay), and counted: ``key_frames`` (frames
+    with a plan), ``tea_rows`` (K x B of the launch), ``keys_scored``
+    (plan entries scored through the last plaintext each frame's loop
+    asked for, BYPASS entries among them), ``key_fallback`` (entries
+    the kernel left to the host, which scored them) and ``decrypted``.
     """
     with prof.span("key_plan"):
         pending = []
@@ -448,13 +487,12 @@ def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
     if not pending:
         return
     prof.count("key_frames", len(pending))
-    # the last plan entry each frame's loop asked a plaintext for (-1:
-    # none): its loop scored entries 0..last
-    last = [-1] * len(pending)
     if len(pending) == 1:
         # a lone frame is cheaper on the host than one device round trip
         from tetraear_tpu_torch.crypto.tea import TEADecryptor
         f, dec, (payload, keys_to_try) = pending[0]
+        # the last plan entry the loop asked a plaintext for (-1: none)
+        last = [-1]
 
         def host_plaintext(i):
             # what _select_decrypt does without plaintext_at, counted
@@ -465,64 +503,190 @@ def batch_decrypt_frames(decoders, frames: list, device=None) -> None:
         with prof.span("key_score"):
             dec._select_decrypt(f, payload, keys_to_try, host_plaintext)
             dec._post_decrypt_sds(f)
-        _count_scored(pending, last)
+        _count_scored(pending, last[0] + 1, 0)
         return
+    _score_on_device(pending, device)
+
+
+# entry codes of _score_on_device besides a key's row of the fused
+# output (and K, the payload itself: BYPASS)
+_SKIP = -1          # a key TEADecryptor rejects: the loop skips it
+_NO_ENTRY = -2      # past the end of a shorter plan
+
+
+def _score_on_device(pending: list, device) -> None:
+    """batch_decrypt_frames for two or more frames: one upload, the
+    decrypt launch, the key_score launch over every (key, frame)
+    plaintext and every payload, one fetch of the records; the host
+    scores the entries the kernel flagged that a frame's loop reaches,
+    selects as _select_decrypt does, fetches the plaintexts it keeps
+    (the chosen ones, and those whose data a parser's fragment buffer
+    keeps) and replays each frame's scoring effects on its decoder's
+    parser, frames in turn."""
+    from tetraear_tpu_torch.crypto import keyscore as ks
+    from tetraear_tpu_torch.crypto.tea import KEY_LENGTHS
+    from tetraear_tpu_torch.frame.burst import bytes_to_bits
+    from tetraear_tpu_torch.frame.decoder import (replay_score_effects,
+                                                  score_plaintext)
+    from tetraear_tpu_torch.frame.mac import MacParser, extract_mac_fields
 
     with prof.span("key_plan"):
-        # collect unique keys per cipher family (TEA1 10-byte; TEA2/3/4
-        # share the classic-TEA structure, crypto.tea semantics)
+        # unique keys per cipher family (TEA1 10-byte; TEA2/3/4 share
+        # the classic-TEA structure, crypto.tea semantics) and each plan
+        # entry's row of the fused output
         fam_keys = {"TEA1": [], "TEA2": []}
         fam_index = {"TEA1": {}, "TEA2": {}}
-        max_len = 0
-        for _, _, (payload, keys_to_try) in pending:
-            max_len = max(max_len, len(payload))
+        codes = []
+        for _, _, (_payload, keys_to_try) in pending:
+            row = []
             for key, _desc, alg in keys_to_try:
                 if key is None:
+                    row.append(None)
+                    continue
+                alg = alg.upper()
+                if KEY_LENGTHS.get(alg) != 8 * len(key):
+                    row.append(_SKIP)
                     continue
                 fam = "TEA1" if alg == "TEA1" else "TEA2"
-                want = 10 if fam == "TEA1" else 16
-                if len(key) != want:
-                    continue           # host loop would raise+skip too
-                if key not in fam_index[fam]:
-                    fam_index[fam][key] = len(fam_keys[fam])
+                ki = fam_index[fam].get(key)
+                if ki is None:
+                    ki = fam_index[fam][key] = len(fam_keys[fam])
                     fam_keys[fam].append(key)
-
-        payload_mat = np.zeros((len(pending), max_len), np.uint8)
+                row.append((fam, ki))
+            codes.append(row)
+        k1 = len(fam_keys["TEA1"])
+        n_keys = k1 + len(fam_keys["TEA2"])
+        n_frames = len(pending)
+        lengths = np.array([len(p) for _, _, (p, _) in pending], np.int64)
+        payload_mat = np.zeros((n_frames, lengths.max()), np.uint8)
+        entries = np.full((n_frames, max(map(len, codes))), _NO_ENTRY,
+                          np.int64)
         for bi, (_, _, (payload, _)) in enumerate(pending):
             payload_mat[bi, :len(payload)] = np.frombuffer(payload, np.uint8)
+            entries[bi, :len(codes[bi])] = [
+                n_keys if c is None else c if isinstance(c, int)
+                else c[1] + (0 if c[0] == "TEA1" else k1)
+                for c in codes[bi]]
 
-    # one search for both families, TEA1's keys first
-    plains = None
-    if fam_keys["TEA1"] or fam_keys["TEA2"]:
+    with prof.span("tea"):
+        rec, plains = tea_decrypt_scored(payload_mat, lengths,
+                                         fam_keys["TEA1"], fam_keys["TEA2"],
+                                         device=device)
+    prof.count("tea_rows", n_keys * n_frames)
+
+    with prof.span("key_score"):
+        bi_col = np.arange(n_frames)[:, None]
+        scoring = entries >= 0
+        cols = np.where(scoring, entries * n_frames + bi_col, 0)
+        score = rec[ks.SCORE][cols].astype(np.int64)
+        info = rec[ks.INFO][cols].astype(np.int64)
+        network = rec[ks.NETWORK][cols].astype(np.int64)
+        flagged = scoring & (info & ks.FLAG != 0)
+        keyed_flagged = flagged & (entries < n_keys)
+
+    fetched = {}                 # column -> the fused output's row
+
+    def plaintext(bi, i):
+        k = entries[bi, i]
+        if k == n_keys:
+            return pending[bi][2][0]
+        return fetched[k * n_frames + bi][:lengths[bi]].tobytes()
+
+    if keyed_flagged.any():
         with prof.span("tea"):
-            plains = tea_decrypt_families(payload_mat, fam_keys["TEA1"],
-                                          fam_keys["TEA2"], device=device)
-        prof.count("tea_rows", plains.shape[0] * plains.shape[1])
-    first = {"TEA1": 0, "TEA2": len(fam_keys["TEA1"])}
+            fetched.update(_fetch_rows(plains, cols[keyed_flagged]))
+    with prof.span("key_score"):
+        # the host scores the flagged entries a frame's loop reaches, in
+        # turn: the loop reaches an entry unless one before it scored
+        # 150 or more
+        n_fallback = 0
+        while True:
+            stop = scoring & (flagged | (score >= 150))
+            first = np.argmax(stop, axis=1)
+            todo = np.flatnonzero(stop.any(axis=1)
+                                  & flagged[np.arange(n_frames), first])
+            if not len(todo):
+                break
+            for bi in todo:
+                i = first[bi]
+                got = ks.record_of(score_plaintext(plaintext(bi, i)))
+                score[bi, i], info[bi, i], network[bi, i] = got
+                flagged[bi, i] = False
+                n_fallback += 1
+        hit = scoring & (score >= 150)
+        plan_len = (entries != _NO_ENTRY).sum(axis=1)
+        end = np.where(hit.any(axis=1), np.argmax(hit, axis=1), plan_len - 1)
+        col = np.arange(entries.shape[1])
+        in_prefix = scoring & (col <= end[:, None])
+        keyed = (entries != _NO_ENTRY) & (entries != n_keys) \
+            & (col <= end[:, None])
+        last_keyed = np.where(keyed.any(axis=1),
+                              col[-1] - np.argmax(keyed[:, ::-1], axis=1), -1)
+        masked = np.where(in_prefix, score, np.iinfo(np.int64).min)
+        best = np.argmax(masked, axis=1)
+        best_score = masked[np.arange(n_frames), best]
+        # the plaintexts the host keeps: each frame's chosen one, and
+        # those whose MAC data its parser's fragment buffer keeps
+        kept, chain_at = MacParser.buffer_keeps(
+            np.where(in_prefix, ks.pdu_types(info), -1))
+        chosen = np.zeros_like(kept)
+        chosen[np.arange(n_frames), best] = best_score >= 80
+        want = (kept | chosen) & (entries < n_keys)
+        want_cols = np.setdiff1d(cols[want], list(fetched))
+    if len(want_cols):
+        with prof.span("tea"):
+            fetched.update(_fetch_rows(plains, want_cols))
 
     with prof.span("key_score"):
         for bi, (f, dec, (payload, keys_to_try)) in enumerate(pending):
-
-            def plaintext_at(i, _bi=bi, _payload=payload,
-                             _keys=keys_to_try):
-                last[_bi] = i
-                key, _desc, alg = _keys[i]
-                fam = "TEA1" if alg == "TEA1" else "TEA2"
-                ki = fam_index[fam].get(key)
-                if ki is None:         # invalid combo: host semantics
-                    from tetraear_tpu_torch.crypto.tea import TEADecryptor
-                    return TEADecryptor(key, alg).decrypt(_payload)
-                return plains[first[fam] + ki, _bi,
-                              :len(_payload)].tobytes()
-
-            dec._select_decrypt(f, payload, keys_to_try, plaintext_at)
+            result = None
+            if best_score[bi] > 0:
+                b = best[bi]
+                plain = plaintext(bi, b) if best_score[bi] >= 80 else None
+                result = (plain, keys_to_try[b][1])
+            dec._apply_decrypt(f, len(keys_to_try), result,
+                               max(int(best_score[bi]), 0))
             dec._post_decrypt_sds(f)
-    _count_scored(pending, last)
+            at = np.flatnonzero(in_prefix[bi])
+
+            def fields_at(j, _bi=bi, _at=at):
+                return extract_mac_fields(bytes_to_bits(
+                    plaintext(_bi, _at[j])))
+
+            last = (int(np.searchsorted(at, chain_at[bi]))
+                    if chain_at[bi] >= 0 else -1)
+            replay_score_effects(
+                dec.protocol_parser,
+                int(np.count_nonzero(info[bi, at] & ks.COUNT)),
+                ks.pdus_of(info[bi, at], network[bi, at]), last, fields_at)
+    _count_scored(pending, int(last_keyed.sum()) + n_frames, n_fallback)
 
 
-def _count_scored(pending: list, last: list) -> None:
-    """The block's ``keys_scored`` and ``decrypted`` counters."""
-    prof.count("keys_scored", sum(last) + len(last))
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A device tensor to the host as numpy: through a pinned buffer (the
+    caching host allocator keeps it across calls), a direct copy, not
+    staged through pageable memory."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def _fetch_rows(plains: torch.Tensor, cols) -> dict:
+    """{column: (L,) uint8 plaintext} of the fused output's columns k B
+    + b: one gather on the device, one fetch."""
+    cols = np.unique(np.asarray(cols, np.int64))
+    flat = plains.reshape(-1, plains.shape[2])
+    rows = _fetch(flat[torch.from_numpy(cols).to(plains.device)])
+    return dict(zip(cols.tolist(), rows))
+
+
+def _count_scored(pending: list, n_scored: int, n_fallback: int) -> None:
+    """The block's ``keys_scored``, ``key_fallback`` and ``decrypted``
+    counters."""
+    prof.count("keys_scored", n_scored)
+    prof.count("key_fallback", n_fallback)
     prof.count("decrypted", sum(1 for f, _, _ in pending
                                 if f.get("decrypted")))
 

@@ -22,7 +22,9 @@ chain runs ``band_synth_y`` (or an extraction kernel) and
 ``ops_probe``, ``iir_recursion``, ``int_rate``: csrc/probes.cu;
 ``synth_chain``: csrc/speech.cu) have
 their wrappers in ``dsp/probes.py``, and the TEA key search
-(``tea_search``: csrc/tea.cu) has its wrappers in ``crypto/batch.py``,
+(``tea_search``: csrc/tea.cu) has its wrappers in ``crypto/batch.py``
+and its plaintexts' scores (``key_score``: csrc/keyscore.cu) theirs in
+``crypto/keyscore.py``,
 the speech channel decoder (``viterbi_decode``: csrc/viterbi.cu) its
 wrapper in ``voice/viterbi.py``, the ACELP speech decoder
 (``acelp_decode``: csrc/speech.cu + speech.cuh) its wrapper in
@@ -68,8 +70,8 @@ launches = {"fft2p": 0, "fft2p_pass1": 0, "band_synth": 0, "band_synth_y": 0,
             "band_synth_ph": 0, "fused_backhalf": 0, "frame_scan_even": 0,
             "band_extract_rows": 0, "band_extract": 0, "bit_place": 0,
             "ops_probe": 0, "iir_recursion": 0, "int_rate": 0,
-            "tea_search": 0, "viterbi_decode": 0, "acelp_decode": 0,
-            "synth_chain": 0}
+            "tea_search": 0, "key_score": 0, "viterbi_decode": 0,
+            "acelp_decode": 0, "synth_chain": 0}
 
 
 def reset_launches() -> None:
@@ -84,8 +86,8 @@ def reset_launches() -> None:
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("common.cuh", "radix.cuh", "scan.cuh", "place.cuh", "fft2p.cu",
             "band_synth.cu", "backhalf.cu", "frame_scan.cu",
-            "band_extract.cu", "probes.cu", "tea.cu", "viterbi.cu",
-            "speech.cuh", "speech.cu")
+            "band_extract.cu", "probes.cu", "tea.cu", "keyscore.cu",
+            "viterbi.cu", "speech.cuh", "speech.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "tetraear_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -183,6 +185,7 @@ def _compile_and_load() -> ctypes.CDLL:
     lib.tt_iir_recursion.argtypes = [vp] * 4 + [ci] * 2 + [vp]
     lib.tt_int_rate.argtypes = [ci, ci, ctypes.c_uint, vp, ci, vp]
     lib.tt_tea.argtypes = [ci] + [vp] * 4 + [ctypes.c_uint] * 10 + [vp, vp]
+    lib.tt_key_score.argtypes = [vp] * 5 + [ctypes.c_uint] * 3 + [vp, vp]
     lib.tt_viterbi.argtypes = [vp] * 4 + [ci] * 2 + [vp]
     lib.tt_acelp.argtypes = [vp] * 3 + [ci] * 2 + [vp] * 11
     lib.tt_synth_chain.argtypes = [vp, vp, ci] + [vp] * 4
@@ -190,7 +193,8 @@ def _compile_and_load() -> ctypes.CDLL:
                lib.tt_fused_backhalf, lib.tt_frame_scan_even,
                lib.tt_band_extract_staged, lib.tt_band_extract_pairs,
                lib.tt_bit_place, lib.tt_ops_probe, lib.tt_iir_recursion,
-               lib.tt_int_rate, lib.tt_tea, lib.tt_viterbi, lib.tt_acelp,
+               lib.tt_int_rate, lib.tt_tea, lib.tt_key_score, lib.tt_viterbi,
+               lib.tt_acelp,
                lib.tt_synth_chain):
         fn.restype = ci
     build_info.update(path=str(so), seconds=time.time() - t0, log=log)

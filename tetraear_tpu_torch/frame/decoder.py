@@ -18,13 +18,16 @@ oracle and the single-carrier fallback.
 from __future__ import annotations
 
 import logging
+from typing import NamedTuple
 
 import numpy as np
 
 from tetraear_tpu_torch.crypto.tea import TEADecryptor, TetraKeyManager
 from tetraear_tpu_torch.frame import burst as burst_mod
 from tetraear_tpu_torch.frame import crc as crc_mod
-from tetraear_tpu_torch.frame.mac import MacParser, PDUType
+from tetraear_tpu_torch.frame import sds as sds_mod
+from tetraear_tpu_torch.frame.mac import (MacFields, MacParser, PDUType,
+                                         extract_mac_fields)
 
 logger = logging.getLogger(__name__)
 
@@ -160,6 +163,86 @@ def sync_cascade(corr: np.ndarray, stride: int = 1) -> list:
         adaptive = max(0.75, max_corr - 0.02)
         positions = greedy_positions(corr, adaptive, stride=stride)
     return positions
+
+
+_BYTE_BITS = tuple(format(b, "08b") for b in range(256))
+FIRST_BONUS = (0x01, 0x02, 0x03, 0x04, 0x05, 0x08, 0x0A, 0x0C)
+
+
+class Scored(NamedTuple):
+    """score_plaintext's result: the score, the plaintext's MAC fields
+    (None where extract_mac_fields finds none) and the data messages
+    its SDS parse counts (0 or 1)."""
+    score: int
+    fields: MacFields | None
+    data_messages: int
+
+
+def score_plaintext(plaintext: bytes) -> Scored:
+    """TetraDecoder._score_decrypt without a parser: the score, and what
+    scoring does to the scoring decoder's parser (apply_score_effects).
+    The SDS parse counts into a scratch dict; the MAC PDU is extracted,
+    not applied (apply_mac_fields never makes a MAC_DATA PDU, so every
+    PDU extracted earns the bonus)."""
+    score = 0
+    printable = sum(1 for b in plaintext if 32 <= b <= 126)
+    score += printable * 2
+    unique = len(set(plaintext))
+    if unique > len(plaintext) // 8:
+        score += 30
+    if plaintext == b"\x00" * len(plaintext):
+        score -= 50
+    if plaintext == b"\xFF" * len(plaintext):
+        score -= 50
+    if len(plaintext) >= 4:
+        first = plaintext[0]
+        if first not in (0, 0xFF):
+            score += 10
+        if first in FIRST_BONUS:
+            score += 20
+    if unique > 1:
+        score += 10
+    stats = {"data_messages": 0}
+    try:
+        sds_text = sds_mod.parse_sds_data(plaintext, stats=stats)
+        if sds_text:
+            if sds_text.startswith("[BIN-ENC]"):
+                score -= 20
+            elif sds_text.startswith("[BIN]"):
+                score += 40
+            else:
+                score += 120
+    except Exception:
+        pass
+    fields = None
+    try:
+        bits = burst_mod.bytes_to_bits(plaintext)
+        if crc_mod.soft_crc_check(bits):
+            score += 100
+        fields = extract_mac_fields(bits)
+        if fields is not None:
+            score += 50
+    except Exception:
+        pass
+    return Scored(score, fields, stats["data_messages"])
+
+
+def apply_score_effects(parser: MacParser, scored: Scored) -> None:
+    """What scoring a plaintext does to the scoring decoder's parser: the
+    SDS parse's data messages, and the MAC PDU applied."""
+    parser.stats["data_messages"] += scored.data_messages
+    if scored.fields is not None:
+        parser.apply_mac_fields(scored.fields)
+
+
+def replay_score_effects(parser: MacParser, data_messages: int,
+                         pdus: list, last: int, fields_at) -> None:
+    """apply_score_effects of plaintexts scored in turn, from what their
+    scores kept (the records of crypto/keyscore.py): the data messages
+    they count, and their MAC PDUs replayed (MacParser.replay_mac_fields
+    with ``pdus``, ``last`` and ``fields_at``)."""
+    parser.stats["data_messages"] += data_messages
+    parser.replay_mac_fields(pdus, last, fields_at)
 
 
 class TetraDecoder:
@@ -512,46 +595,11 @@ class TetraDecoder:
     # -- decryption bruteforce ---------------------------------------------
 
     def _score_decrypt(self, plaintext: bytes) -> int:
-        """Plaintext plausibility score (decoder.py:698-768)."""
-        score = 0
-        printable = sum(1 for b in plaintext if 32 <= b <= 126)
-        score += printable * 2
-        unique = len(set(plaintext))
-        if unique > len(plaintext) // 8:
-            score += 30
-        if plaintext == b"\x00" * len(plaintext):
-            score -= 50
-        if plaintext == b"\xFF" * len(plaintext):
-            score -= 50
-        if len(plaintext) >= 4:
-            first = plaintext[0]
-            if first not in (0, 0xFF):
-                score += 10
-            if first in (0x01, 0x02, 0x03, 0x04, 0x05, 0x08, 0x0A, 0x0C):
-                score += 20
-        if unique > 1:
-            score += 10
-        try:
-            sds_text = self.protocol_parser.parse_sds_data(plaintext)
-            if sds_text:
-                if sds_text.startswith("[BIN-ENC]"):
-                    score -= 20
-                elif sds_text.startswith("[BIN]"):
-                    score += 40
-                else:
-                    score += 120
-        except Exception:
-            pass
-        try:
-            bits = burst_mod.bytes_to_bits(plaintext)
-            if crc_mod.soft_crc_check(bits):
-                score += 100
-            pdu = self.protocol_parser.parse_mac_pdu(bits)
-            if pdu and pdu.pdu_type != PDUType.MAC_DATA:
-                score += 50
-        except Exception:
-            pass
-        return score
+        """Plaintext plausibility score (decoder.py:698-768), fed to this
+        decoder's parser: score_plaintext, then apply_score_effects."""
+        scored = score_plaintext(plaintext)
+        apply_score_effects(self.protocol_parser, scored)
+        return scored.score
 
     def _build_key_plan(self, frame_data: dict):
         """Payload extraction + ordered key list (decoder.py:596-666).
@@ -614,11 +662,10 @@ class TetraDecoder:
                         keys_to_try: list, plaintext_at=None) -> dict:
         """Score/select loop + result application (decoder.py:690-833).
 
-        ``plaintext_at(i)`` supplies the i-th key's plaintext — device-
-        precomputed in the batched path, host TEA otherwise.  The loop
-        order, scoring and early-exit are identical either way, so both
-        paths pick the same key."""
-        frame_data["keys_tried"] = len(keys_to_try)
+        ``plaintext_at(i)`` supplies the i-th key's plaintext (host TEA
+        without it).  The batched key search (crypto/batch.py) scores
+        on the device instead and gives the same selection to
+        _apply_decrypt."""
         best_result, best_score = None, 0
         for i, (key, desc, alg) in enumerate(keys_to_try):
             try:
@@ -632,8 +679,6 @@ class TetraDecoder:
                 if score > best_score:
                     best_score = score
                     best_result = (plain, desc)
-                    frame_data["best_score"] = best_score
-                    frame_data["best_key"] = desc
                 # Early-exit only on a confidently-readable decode.  The
                 # reference breaks at score > 80 (decoder.py:777-779), but
                 # random plaintext regularly crosses 80 on the printable
@@ -643,7 +688,19 @@ class TetraDecoder:
                     break
             except Exception:
                 continue
+        return self._apply_decrypt(frame_data, len(keys_to_try),
+                                   best_result, best_score)
 
+    def _apply_decrypt(self, frame_data: dict, n_keys: int, best_result,
+                       best_score: int) -> dict:
+        """The selection's result: ``best_result`` is the (plaintext, key
+        description) of the first entry that reached the highest score
+        of those scored (None when none scored above 0), taken at 80 or
+        more."""
+        frame_data["keys_tried"] = n_keys
+        if best_result is not None:
+            frame_data["best_score"] = best_score
+            frame_data["best_key"] = best_result[1]
         if best_result and best_score >= 80:
             plain, desc = best_result
             if desc.startswith("BYPASS"):
@@ -654,7 +711,7 @@ class TetraDecoder:
                 return frame_data
             frame_data["decrypted"] = True
             frame_data["decrypted_payload"] = "".join(
-                format(b, "08b") for b in plain)
+                map(_BYTE_BITS.__getitem__, plain))
             frame_data["decrypted_bytes"] = plain.hex()
             frame_data["key_used"] = desc
             frame_data["decrypt_confidence"] = best_score
@@ -666,7 +723,7 @@ class TetraDecoder:
         else:
             frame_data["decrypted"] = False
             frame_data["decryption_error"] = (
-                f"Tried {len(keys_to_try)} key(s), best score: {best_score}")
+                f"Tried {n_keys} key(s), best score: {best_score}")
             frame_data["best_score"] = best_score
         return frame_data
 

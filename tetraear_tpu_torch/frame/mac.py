@@ -192,7 +192,8 @@ class MacParser:
 
     def apply_mac_fields(self, f: "MacFields") -> MacPDU:
         """Stateful tail of parse_mac_pdu on pre-extracted fields (from
-        extract_mac_fields or the hitparse batch engine)."""
+        extract_mac_fields or the hitparse batch engine).  replay_mac_fields
+        below replays this state machine from a summary of the fields."""
         pdu_type = {
             0: PDUType.MAC_RESOURCE,
             1: PDUType.MAC_FRAG,
@@ -253,6 +254,70 @@ class MacParser:
             pdu.reassembled_data = bytes(data_bytes)
 
         return pdu
+
+    @staticmethod
+    def buffer_keeps(types: np.ndarray) -> tuple:
+        """Of rows of PDUs that apply_mac_fields applies in turn
+        (``types``: (rows, n) pdu_type_int, -1 where there is no PDU):
+        whose data the fragment buffer holds after each row (its last
+        RESOURCE when no END follows it, and the FRAGs after its last
+        RESOURCE or END), and the column of that last RESOURCE or END
+        (-1: none).  Holds for PDUs that all have data, as every PDU of
+        8 bytes or more has: each END then clears the buffer it
+        extends."""
+        chain = (types == 0) | (types == 3)
+        col = np.arange(types.shape[1])
+        at = np.where(chain.any(axis=1),
+                      col[-1] - np.argmax(chain[:, ::-1], axis=1), -1)
+        kept = (((types == 0) & (col == at[:, None]))
+                | ((types == 1) & (col > at[:, None])))
+        return kept, at
+
+    def replay_mac_fields(self, pdus: list, last: int, fields_at) -> None:
+        """Leave the parser as apply_mac_fields of a row of PDUs in turn
+        leaves it, from each one's (pdu_type_int, enc_mode, sysinfo)
+        alone (None: no PDU): the encrypted / clear counts, the network
+        identity, the fragment buffer and its metadata.  ``last`` is
+        buffer_keeps' column for the row; ``fields_at(j)`` gives PDU j's
+        MacFields and is asked only for the PDUs buffer_keeps marks,
+        which are applied in full.  The same state machine as
+        apply_mac_fields: a change to one is a change to both."""
+        meta = self.fragment_metadata
+        # the chain's encrypted flag while metadata is set, else None
+        chain = bool(meta.get("encrypted", False)) if meta else None
+        n_enc = n_clear = 0
+        for j, pdu in enumerate(pdus):
+            if pdu is None:
+                continue
+            t, e, sysinfo = pdu
+            if (t == 0 and j == last) or (t == 1 and j > last):
+                # the chain the buffer keeps opens here, or a fragment
+                # it keeps
+                self.apply_mac_fields(fields_at(j))
+                if t == 0:
+                    chain = e > 0
+                continue
+            if t == 0:                          # MAC-RESOURCE
+                encrypted = chain = e > 0
+            elif t == 2:                        # MAC-BROADCAST
+                encrypted = e > 0
+                if sysinfo is not None:
+                    self.mcc, self.mnc, self.colour_code = sysinfo
+                    logger.info("Valid TETRA SYNC: MCC=%s MNC=%s",
+                                self.mcc, self.mnc)
+            else:                               # MAC-FRAG, MAC-END
+                encrypted = chain if chain is not None else e > 0
+                if t == 3:
+                    chain = None
+                    if j == last:
+                        self.fragment_buffer = bytearray()
+                        self.fragment_metadata = {}
+            if encrypted:
+                n_enc += 1
+            else:
+                n_clear += 1
+        self.stats["encrypted_frames"] += n_enc
+        self.stats["clear_mode_frames"] += n_clear
 
     # -- Call metadata ----------------------------------------------------
 
