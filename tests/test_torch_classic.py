@@ -50,6 +50,7 @@ from tetraear_tpu_torch.frame.batch import BatchedFrameDecoder  # noqa: E402
 from tetraear_tpu_torch.golden import fleet_capture  # noqa: E402
 from tetraear_tpu_torch.runtime import stream  # noqa: E402
 from tetraear_tpu_torch.runtime.sources import FileIQSource  # noqa: E402
+from torch_jax_repaired import repaired_timing  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "offair_2carrier.cs16"
@@ -186,6 +187,100 @@ def test_timing_recover_equals_jax(matched):
     p0 = timing.init_timing_state(3, device=CPU)
     for key in i0:
         np.testing.assert_array_equal(p0[key].numpy(), np.asarray(i0[key]))
+
+
+def test_timing_recover_keeps_a_symbol_snapped_below_one(matched):
+    """A symbol clock that snaps from just above 1.0 to just below it
+    keeps its symbol.  The JAX reference wraps such an instant a whole
+    symbol on and drops that symbol, a one-way slip of the carrier's
+    count that repeats while its timing sits there (a carrier of the
+    benchmark's rtl80.busy lost 5 symbols a 16-block cycle).  The port
+    reads it with the tap base clamped, as it reads an instant above
+    SPS + 1, and gives the reference's instants from its second symbol
+    on, and the same clock for the next block."""
+    y, tst = matched
+    c, n = y.shape
+    mu = 0.95
+    # an accumulator that outweighs the block's phasor fixes mu; the
+    # clock sits at 1.05, so the snap moves it to 0.95
+    acc = 1e12 * np.exp(-2j * np.pi * mu / timing.SPS)
+    acc = np.stack([np.full(c, acc.real), np.full(c, acc.imag)],
+                   axis=1).astype(np.float32)
+    next_t = np.full(c, 1.05, np.float32)
+    jstate = {"tail": jax_kernels.r2c(jnp.asarray(tst["tail"])),
+              "next_t": jnp.asarray(next_t),
+              "acc": jax_kernels.r2c(jnp.asarray(acc))}
+    pstate = {"tail": kernels.r2c(torch.from_numpy(tst["tail"].copy())),
+              "next_t": torch.from_numpy(next_t.copy()),
+              "acc": kernels.r2c(torch.from_numpy(acc.copy()))}
+    ws, wv, wst = jax_timing.timing_recover(jnp.asarray(y), jstate)
+    gs, gv, gst = timing.timing_recover(torch.from_numpy(y), pstate)
+    k = n // timing.SPS + 1
+    assert (np.asarray(wv).sum(axis=1) == k - 1).all()     # one dropped
+    assert (gv.numpy().sum(axis=1) == k).all()             # kept
+    # the same instants, read on the next cubic segment (a fraction of
+    # -0.05 there against 0.95 here): they differ by the interpolator's
+    # own error, about 4e-4 of the largest symbol
+    close(gs.numpy()[:, 1:], np.asarray(ws)[:, :-1], tol=2e-3,
+          msg="later symbols")
+    np.testing.assert_allclose(gst["next_t"].numpy(),
+                               np.asarray(wst["next_t"]), atol=1e-3)
+    # the kept symbol: the cubic on the block's first four samples
+    z = np.concatenate([np.asarray(jstate["tail"]), y], axis=1)
+    f = np.float32(gst["next_t"].numpy()[0] - 4.0 - 1.0)
+    p0, p1, p2, p3 = (z[:, j] for j in range(4))
+    first = 0.5 * (2 * p1 + (p2 - p0) * f
+                   + (2 * p0 - 5 * p1 + 4 * p2 - p3) * f * f
+                   + (3 * (p1 - p2) + p3 - p0) * f ** 3)
+    close(gs.numpy()[:, 0], first, tol=1e-4, msg="kept symbol")
+
+
+def test_timing_recover_kept_symbol_error_is_bounded(matched):
+    """A clock snapped into [0, 1) is read with the tap base clamped: the
+    cubic of the segment above each instant, at a fraction in [-1, 0),
+    for every symbol of the block (the fraction is the carrier's).  Held
+    against the interpolation of the same instants on their own
+    segments, over the same samples with a longer tail, that read errs
+    as the reference's own read of a clock above SPS + 1 errs at the
+    mirror distance (i0 clamped there too): 5e-4 of the symbols' RMS
+    for a snap to 0.95, about a sixth of it for one to 0.1."""
+    y, tst = matched
+    z = np.concatenate(
+        [kernels.r2c(torch.from_numpy(tst["tail"].copy())).numpy(), y],
+        axis=1)
+    c, sps, shift = z.shape[0], timing.SPS, 2
+    m = (z.shape[1] - shift - 8) // sps * sps
+
+    def read(next_t, mu):
+        """The block `shift` samples into z with its clock at next_t
+        and an accumulator that snaps it to mu: (first instant in the
+        block, kept count, RMS error against z's own segments / RMS)."""
+        acc = 1e12 * np.exp(-2j * np.pi * np.full(c, mu) / sps)
+        state = {"tail": torch.from_numpy(z[:, shift:shift + 4].copy()),
+                 "next_t": torch.full((c,), next_t),
+                 "acc": torch.from_numpy(acc.astype(np.complex64))}
+        gs, gv, gst = timing.timing_recover(
+            torch.from_numpy(z[:, shift + 4:shift + 4 + m].copy()), state)
+        v = gv.numpy()
+        first = gst["next_t"].numpy() - sps * v.sum(axis=1) + m
+        t = (first[:, None] + shift
+             + sps * np.arange(v.shape[1])[None]).astype(np.float32)
+        want = timing._catmull_rom_rows(torch.from_numpy(z),
+                                        torch.from_numpy(t)).numpy()[v]
+        err = np.abs(gs.numpy()[v] - want)
+        rms = np.sqrt(np.mean(np.abs(want) ** 2))
+        return first, v.sum(axis=1), np.sqrt(np.mean(err ** 2)) / rms
+
+    for d in (0.05, 0.25, 0.5, 0.9):
+        first, kept, below = read(1.05, 1.0 - d)
+        np.testing.assert_allclose(first, 1.0 - d, atol=1e-4)
+        assert (kept == m // sps + 1).all()           # no symbol dropped
+        first, _, above = read(4.95, 1.0 + d)
+        np.testing.assert_allclose(first, 5.0 + d, atol=1e-4)
+        assert below <= 1.25 * above + 1e-5, (d, below, above)
+        if d == 0.05:
+            assert below < 1e-3, below
+        assert below < 0.25, (d, below)
 
 
 def test_afc_and_demod_equal_jax(matched):
@@ -469,7 +564,7 @@ def fixture_iq():
         return np.asarray(src.read_samples(10 ** 7), np.complex64)
 
 
-def test_scan_runner_equals_jax():
+def test_scan_runner_equals_jax(repaired_timing):
     iq = golden_24()
     kw = dict(fs=2.4e6, freqs_hz=list(FIX_OFFSETS), block_len=400 * 80,
               afc=True)
@@ -492,10 +587,13 @@ def test_scan_runner_equals_jax():
     ("golden", "conv", True), ("golden", "conv", False),
     ("golden", "fft", True), ("fixture", "conv", True),
     ("fixture", "fft", False)])
-def test_decode_runner_classic_equals_jax(capture, frontend, sparse):
+def test_decode_runner_classic_equals_jax(capture, frontend, sparse,
+                                          repaired_timing):
     """DecodeRunner on the classic chain (the JAX runner takes it on the
     CPU backend; 2.4 Msps is not fused-eligible anyway): identical frame
-    lists, dense and sparse."""
+    lists, dense and sparse, against the JAX package with the port's
+    repaired clock wrap (``repaired_timing``: on the off-air fixture the
+    reference drops a symbol of the conv chain)."""
     iq = golden_24() if capture == "golden" else fixture_iq()
     kw = dict(fs=2.4e6, freqs_hz=list(FIX_OFFSETS), frontend=frontend,
               afc=True)
@@ -524,6 +622,41 @@ def test_decode_runner_classic_equals_jax(capture, frontend, sparse):
     text = "[TXT] CLASSIC 0" if capture == "golden" \
         else "[TXT] FIXTURE CAPTURE OK"
     assert sum(f.get("sds_message") == text for f in passes) >= 4
+
+
+def test_decode_runner_fixture_keeps_the_symbol_jax_drops():
+    """On the off-air fixture the unmodified JAX package's conv chain
+    drops one symbol on each carrier, where the clock snaps below 1.0;
+    the port keeps it.  The exact difference: every frame of the
+    reference's, each after the kept symbol one stream symbol later, and
+    one frame more per carrier (the burst the dropped symbol broke),
+    CRC-passing and carrying that carrier's SDS text."""
+    iq = fixture_iq()
+    kw = dict(fs=2.4e6, freqs_hz=list(FIX_OFFSETS), block_len=400 * 80,
+              afc=True)
+    n = len(iq) // kw["block_len"] * kw["block_len"]
+    want = frame_keys(jax_stream.DecodeRunner(
+        JaxBank(**kw), jax_batch.BatchedFrameDecoder(2, auto_decrypt=True),
+        blocks_per_dispatch=3, fetch_soft=False, sparse=True).run(
+            iq[:n])["frames"])
+    got = frame_keys(stream.DecodeRunner(
+        CarrierBankDemod(**kw),
+        BatchedFrameDecoder(2, auto_decrypt=True, device=CPU),
+        blocks_per_dispatch=3, device=CPU, sparse=True).run(
+            iq[:n])["frames"])
+    texts = {0: "[TXT] FIXTURE CAPTURE OK", 1: "[TXT] SECRET FIX MSG"}
+    for ci in range(2):
+        w = [k for k in want if k[0] == ci]
+        g = [k for k in got if k[0] == ci]
+        assert len(g) == len(w) + 1
+        # the one extra frame: the first where the two lists part
+        x = next(i for i in range(len(w) + 1) if i == len(w) or g[i] != w[i])
+        assert 0 < x < len(w)
+        extra = g[x]
+        assert extra[3] and extra[7] == texts[ci]
+        assert g[:x] == w[:x]
+        assert g[x + 1:] == [(k[0], k[1] + 1, *k[2:]) for k in w[x:]]
+        assert w[x - 1][1] < extra[1] < w[x][1] + 1
 
 
 def test_decode_runner_switches_and_reset():
@@ -556,10 +689,11 @@ def test_decode_runner_switches_and_reset():
 
 
 @pytest.mark.parametrize("frontend", ["conv", "fft"])
-def test_pipeline_run_offline_fixture_equals_jax(frontend):
+def test_pipeline_run_offline_fixture_equals_jax(frontend, repaired_timing):
     """The README's flow on the off-air fixture through the entry point,
     with the defaults (conv frontend, AFC on, auto-decrypt): the port's
-    frames equal the JAX package's, crc_pass >= 16, both SDS texts."""
+    frames equal the JAX package's (with the port's repaired clock wrap,
+    ``repaired_timing``), crc_pass >= 16, both SDS texts."""
     want = []
     jcfg = jax_api.PipelineConfig(
         sample_rate=2.4e6, carrier_offsets_hz=FIX_OFFSETS, voice=False,

@@ -40,7 +40,12 @@ def _port(name: str, *argv: str) -> tuple:
 
 def _jax(name: str, *argv: str, monkeypatch) -> tuple:
     """(exit code, stdout) of the JAX package's script examples/<name>.py
-    run as __main__."""
+    run as __main__, its timing recovery with the port's repaired clock
+    wrap (``torch_jax_repaired``)."""
+    from torch_jax_repaired import jax_timing_recover_repaired
+    from tetraear_tpu.dsp import timing
+    monkeypatch.setattr(timing, "timing_recover",
+                        jax_timing_recover_repaired())
     monkeypatch.setattr(sys, "argv", [f"{name}.py", *argv])
     buf = io.StringIO()
     rc = 0

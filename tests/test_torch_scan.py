@@ -46,8 +46,15 @@ def _capture(n_payloads: int) -> np.ndarray:
 
 @pytest.fixture(scope="module", params=[4, 14], ids=["conv", "fft"])
 def wideband(request):
+    """The JAX scan with the port's repaired clock wrap
+    (``torch_jax_repaired``) and the port's, on one capture."""
+    from torch_jax_repaired import jax_timing_recover_repaired
+    from tetraear_tpu.dsp import timing
     iq = _capture(request.param)
-    want = jscan.WidebandScanner(fs=2.4e6).scan(iq, center_freq_hz=392.5e6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(timing, "timing_recover", jax_timing_recover_repaired())
+        want = jscan.WidebandScanner(fs=2.4e6).scan(
+            iq, center_freq_hz=392.5e6)
     ws = tscan.WidebandScanner(fs=2.4e6)
     got = ws.scan(iq, center_freq_hz=392.5e6, device="cpu")
     return want, got, ws, (len(iq), request.param)

@@ -10,8 +10,8 @@
   * a test-size ``Pipeline`` on the CPU (fused chain, TEA carriers, voice
     on the device pool's plain decoder with fewer slots than voice
     carriers) gives the same frames and PCM traced and untraced, every
-    span of the issue's table and every counter, and no span's children
-    outlast it;
+    span of the issue's table and every counter, no other span, and no
+    span's children outlast it;
   * on the card (marked ``cuda``): the step's kernels ran inside
     ``te.step``.
 
@@ -293,6 +293,14 @@ def test_pipeline_block_spans_and_counters(runs):
     # counters run untraced too, and count the same
     on_counts = {k: sum(b.counts[k] for b in blocks) for k in COUNTERS}
     assert off_counts == on_counts
+
+
+def test_fused_span_set_unchanged(runs):
+    """The fused chain opens none of the classic chain's stage spans
+    (``frontend``, ``timing``, ``scan``) and no ``gate`` with the gate
+    off: its blocks hold the spans above and no others."""
+    for rec in runs[2]:
+        assert {s[0] for s in rec.spans} == set(SPANS)
 
 
 def test_children_never_exceed_their_parent(runs):

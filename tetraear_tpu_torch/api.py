@@ -328,7 +328,8 @@ class Pipeline:
 
         The block is the root span of the port's tracer (runtime/
         profiling): traced, each block is a record of its spans, and the
-        ``launches`` counter takes the block's kernel launches."""
+        ``launches`` counter takes the block's kernel launches; the
+        ``gated`` counter takes a block the detection gate drops."""
         launches = sum(ck.launches.values())
         with prof.block():
             frames_out = self._process_block(block)
@@ -344,11 +345,13 @@ class Pipeline:
         self.stats.samples += len(block)
 
         if self.config.detect_gate or self.on_spectrum or self.config.afc:
-            present, peak_off, spectrum = self._detect_signal(block)
+            with prof.span("gate"):
+                present, peak_off, spectrum = self._detect_signal(block)
             self.stats.signal_present = present
             if self.on_spectrum:
                 self.on_spectrum(spectrum)
             if self.config.detect_gate and not present:
+                prof.count("gated", 1)
                 if self.on_status:
                     self.on_status("no signal")
                 return []

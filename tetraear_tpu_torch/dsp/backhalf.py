@@ -339,12 +339,19 @@ def block_step_scan(bank, x_r, state, bit_tail_bits,
     """classic_step_scan that ALSO returns the demod block outputs: one
     block of the classic chain, demod + device sync/CRC scan with the
     carried bit tail."""
-    k = bank.k_max
     out, st2 = bank._step_impl(x_r, state)
+    scan, tl2, n_c = scan_step(out, bit_tail_bits, bank.k_max, kernel_scan)
+    return scan, st2, tl2, n_c, out
+
+
+def scan_step(out: dict, bit_tail_bits, k: int,
+              kernel_scan: bool = True) -> tuple:
+    """The classic chain's scan half: the demod outputs' bits after the
+    carried tail, the even-position sync + CRC scan, and the next tail.
+    Returns (scan dict, new tail bits, n_valid)."""
     valid = out["valid"]
     n_c = valid.sum(dim=1)
     z = torch.cat([bit_tail_bits, interleave_bits(out["hard"], valid)],
                   dim=1)
     scan = framescan.frame_scan_packed_even(z, kernel_scan)
-    tl2 = slide_tail(z, n_c, k)
-    return scan, st2, tl2, n_c, out
+    return scan, slide_tail(z, n_c, k), n_c

@@ -32,6 +32,7 @@ import torch
 from tetraear_tpu_torch.device import resolve
 from tetraear_tpu_torch.dsp import channelizer as chan_mod
 from tetraear_tpu_torch.dsp import design, kernels, timing
+from tetraear_tpu_torch.runtime import profiling as prof
 
 
 def plan_granularity(plan: design.ResamplePlan, sps: int) -> int:
@@ -189,7 +190,18 @@ class CarrierBankDemod:
 
     def _step_impl(self, x_r: torch.Tensor, state: dict) -> tuple:
         """x_r: (N, 2) shared wideband block or (C, N, 2) per-carrier, real
-        [re, im] form; state as produced by init_state (real form)."""
+        [re, im] form; state as produced by init_state (real form).
+        Traced, its two halves are the spans ``frontend`` (mix or
+        channelizer, resampling, RRC) and ``timing`` (timing recovery,
+        AFC, DQPSK), each with CUDA events on a card."""
+        with prof.span("frontend", x_r.device):
+            y, carried = self._frontend(x_r, state)
+        with prof.span("timing", x_r.device):
+            return self._timing(y, state, carried)
+
+    def _frontend(self, x_r: torch.Tensor, state: dict) -> tuple:
+        """The step's front end: the wideband block to (C, n72) complex
+        baseband at the symbol grid's rate, and the state it carries."""
         x = kernels.r2c(x_r)
         dev = x.device
         chan_state = {}
@@ -214,6 +226,13 @@ class CarrierBankDemod:
         else:
             y, rrc_hist = kernels.fir_apply(self.rrc, y,
                                             kernels.r2c(state["rrc_hist"]))
+        return y, {**chan_state, "nco_cycles": nco_cycles,
+                   "stage_hist": [kernels.c2r(h) for h in stage_hist],
+                   "rrc_hist": kernels.c2r(rrc_hist)}
+
+    def _timing(self, y: torch.Tensor, state: dict, carried: dict) -> tuple:
+        """The step's back end: timing recovery, the AFC loop and DQPSK
+        on the baseband ``y``; ``carried`` is ``_frontend``'s state."""
         tstate_c = {
             "tail": kernels.r2c(state["timing"]["tail"]),
             "next_t": state["timing"]["next_t"],
@@ -233,10 +252,7 @@ class CarrierBankDemod:
         hard, soft, prev = timing.dqpsk_demod(
             syms, valid, kernels.r2c(state["prev_sym"]))
         new_state = {
-            **chan_state,
-            "nco_cycles": nco_cycles,
-            "stage_hist": [kernels.c2r(h) for h in stage_hist],
-            "rrc_hist": kernels.c2r(rrc_hist),
+            **carried,
             "timing": {
                 "tail": kernels.c2r(tstate["tail"]),
                 "next_t": tstate["next_t"],

@@ -8,7 +8,9 @@ Algorithm identical to the NumPy oracle (ref/demod in the JAX package):
 Oerder-Meyr square-law timing phasor with an IIR-smoothed accumulator,
 nearest-wrap snap of the symbol clock, Catmull-Rom interpolation at
 symbol instants, then pi/4-DQPSK differential demod with quadrant
-decisions and soft bits.
+decisions and soft bits.  One departure: a clock snapped into [0, 1)
+keeps its symbol, where the reference wraps it a symbol on and drops
+one (``timing_recover``).
 
 At sps=4 the O&M twiddles exp(-j 2 pi n / 4) are exactly {1,-j,-1,j}, so
 the timing metric reduces to four strided power sums.
@@ -96,7 +98,13 @@ def timing_recover(y: torch.Tensor, state: dict,
     cur_frac = torch.remainder(next_t - TAIL, SPS)
     delta = torch.remainder(mu - cur_frac + SPS / 2.0, SPS) - SPS / 2.0
     next_t = next_t + delta
-    next_t = torch.where(next_t < 1.0, next_t + SPS, next_t)
+    # the reference wraps below 1.0, which drops a symbol whenever a
+    # carrier whose instants sit just above 1.0 jitters below it: a
+    # one-way slip that repeats for as long as the timing sits there.
+    # The taps below take next_t in [0, 1) as they take it above SPS + 1
+    # (i0 clamped, a fraction outside [0, 1)), so only a snap below 0,
+    # more than a sample back, wraps.
+    next_t = torch.where(next_t < 0.0, next_t + SPS, next_t)
 
     t_max = float(TAIL + n - 3)
     k_r = torch.arange(k_max, dtype=torch.float32, device=dev)

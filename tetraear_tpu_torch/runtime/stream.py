@@ -26,8 +26,7 @@ import torch
 
 from tetraear_tpu_torch.device import resolve
 from tetraear_tpu_torch.dsp import framescan, kernels
-from tetraear_tpu_torch.dsp.backhalf import (TAILBITS, block_step_scan,
-                                             try_fused)
+from tetraear_tpu_torch.dsp.backhalf import TAILBITS, scan_step, try_fused
 from tetraear_tpu_torch.runtime import profiling as prof
 
 # hard-symbol transfer packing: 2-bit symbols ride 4 to a byte; the host
@@ -316,19 +315,23 @@ class DecodeRunner:
 
     def _block_classic(self, x_r: torch.Tensor, state: dict,
                        tail_bits: torch.Tensor) -> tuple:
-        """One block of the classic chain (backhalf.block_step_scan)."""
-        scan, state, tail_bits, n_c, out = block_step_scan(
-            self.bank, x_r, state, tail_bits, self.kernel_scan)
-        scan_out = self._scan_outputs(scan["corr"], scan["crc_err"])
-        soft_out = (out["soft"],) if self.fetch_soft else ()
-        if self.sparse:
-            # compact transfer: packed symbols + valid COUNTS (the
-            # masked symbols and the contiguous-validity invariant make
-            # the host reconstruction exact — see pack_syms)
-            ys = (masked_pack(out["hard"], out["valid"]),
-                  n_c.to(torch.int32), *scan_out, *soft_out)
-        else:
-            ys = (out["hard"], out["valid"], *scan_out, *soft_out)
+        """One block of the classic chain (backhalf.block_step_scan: the
+        bank's step, then ``scan_step``).  Traced, the scan half, with
+        the compaction of its outputs, is the span ``scan``."""
+        out, state = self.bank._step_impl(x_r, state)
+        with prof.span("scan", self.device):
+            scan, tail_bits, n_c = scan_step(out, tail_bits, self.k,
+                                             self.kernel_scan)
+            scan_out = self._scan_outputs(scan["corr"], scan["crc_err"])
+            soft_out = (out["soft"],) if self.fetch_soft else ()
+            if self.sparse:
+                # compact transfer: packed symbols + valid COUNTS (the
+                # masked symbols and the contiguous-validity invariant
+                # make the host reconstruction exact — see pack_syms)
+                ys = (masked_pack(out["hard"], out["valid"]),
+                      n_c.to(torch.int32), *scan_out, *soft_out)
+            else:
+                ys = (out["hard"], out["valid"], *scan_out, *soft_out)
         return ys, state, tail_bits
 
     def ingest(self, xs: np.ndarray) -> torch.Tensor:
