@@ -1,7 +1,9 @@
 """Whether the frames the timed path delivered are right.
 
 The comparison covers a sample of carriers drawn from the seed, of
-every kind the mix has (idle ones too), over every block of the window.
+every kind the mix has (idle ones too), over every block of the judged
+span: the window's blocks and the few after it that end the span on a
+whole cycle of the capture (``harness.run_cell``).
 What each carrier should give is worked out from what it sent (the
 ``Truth``), by the benchmark's own code: the SDS text the frozen parser
 reads from the sent PDU, the auto-decrypt decision of ``keyplan`` on the
@@ -12,7 +14,7 @@ only to be judged, and to align each carrier's symbol count with the
 sent slots.
 
 One number is held to the cell's limit, ``failed_share``: the slots
-sent inside the window on the watched carriers that came back as no
+sent inside the judged span on the watched carriers that came back as no
 frame (``missed``; a voice slot: no channel-decoded frame) or as a frame
 that is wrong (``wrong``), over the slots sent.  A frame is wrong for a
 CRC verdict other than the frame decoder's rule gives for the sent
@@ -25,6 +27,9 @@ on none of its slots, or another carrier's text on an idle one.  A sound program
 a sent pattern close to a sync word just before a slot hides that slot
 (about one voice slot in 150), and a frame the demodulator gets a bit or
 two wrong can still pass the lenient CRC gate (about one in 8,000).
+Both sit at fixed positions of the capture's cycle, which is why the
+span is whole cycles; ``failed_by_position`` and ``failed_by_cycle``
+say where the failures fell.
 """
 
 from __future__ import annotations
@@ -115,10 +120,11 @@ def compare(truth, watch: dict, frames: list, voice: list, b0: int, b1: int,
     decrypted, decrypted_bytes) of every frame of a watched carrier;
     voice: (block, carrier, symbol, params (2, 138), audio) of every
     channel-decoded voice frame of one, in the order they were
-    synthesized.  Blocks b0..b1 are the window.  ``control``: judge, in
+    synthesized.  Blocks b0..b1 are the judged span.  ``control``: judge, in
     place of the program's frames, the reference's own answers without
     the slots that cross a block boundary (a receiver that carries no
     state from block to block)."""
+    ns = truth.cycle_syms
     texts = {}
     for ci, car in truth.carriers.items():
         if car.role == "sds":
@@ -139,6 +145,7 @@ def compare(truth, watch: dict, frames: list, voice: list, b0: int, b1: int,
     missed = wrong = expected = judged = 0
     details = Counter()
     examples = []
+    at = []                # (symbol, block or None) of each failure
     for ci, role in sorted(watch.items()):
         car = truth.carriers.get(ci)
         if role == "idle":
@@ -146,9 +153,11 @@ def compare(truth, watch: dict, frames: list, voice: list, b0: int, b1: int,
                 if b0 <= rec[0] <= b1 and rec[3] and rec[4] in texts:
                     wrong += 1
                     details["idle_text"] += 1
+                    at.append((rec[2], rec[0]))
             continue
         recs = v_by_c[ci] if role == "voice" else by_c[ci]
         off, where = _align(truth, car, [r[2] for r in recs])
+        lat = _lattice(truth, car)
         exp = _expected_slots(truth, car, off, b0, b1)
         if control:
             recs, where = _control_frames(truth, car, off, exp, role, want)
@@ -171,15 +180,19 @@ def compare(truth, watch: dict, frames: list, voice: list, b0: int, b1: int,
                 if role == "voice":
                     wrong += 1
                     details["voice_off_slot"] += 1
+                    at.append((rec[2], rec[0]))
                 elif rec[3]:
                     wrong += 1
                     details["crc_off_slot"] += 1
+                    at.append((rec[2], rec[0]))
                 else:
                     details["spurious"] += 1
                 continue
+            start = slot[0] * ns + int(lat[slot[1]]) + off
             if seen[slot] == 2:
                 wrong += 1
                 details["twice"] += 1
+                at.append((start, rec[0]))
             if role == "voice":
                 bad = _judge_voice(car, slot, rec, pcm[k])
             elif rec[3] != bool(car.crc_ok[slot[1]]):
@@ -191,10 +204,12 @@ def compare(truth, watch: dict, frames: list, voice: list, b0: int, b1: int,
             if bad:
                 wrong += 1
                 details[bad] += 1
+                at.append((start, rec[0]))
                 examples.append((bad, ci, role, slot) + (
                     () if role == "voice" else tuple(rec[3:])))
         gone = [s for s in exp if s not in seen]
         missed += len(gone)
+        at.extend((cyc * ns + int(lat[j]) + off, None) for cyc, j in gone)
         if gone:
             details["missed_" + role] += len(gone)
             for cyc, j in sorted(gone)[:2]:
@@ -204,10 +219,35 @@ def compare(truth, watch: dict, frames: list, voice: list, b0: int, b1: int,
                 examples.append((ci, role, cyc, j,
                                  tx // truth.block_syms,
                                  tx % truth.block_syms, near))
+    by_pos, by_cyc = _where_failed(truth, at, b0, b1)
     return {"missed": missed, "wrong": wrong, "expected": expected,
             "judged": judged,
             "failed_share": (missed + wrong) / expected if expected else 1.0,
+            "failed_by_position": by_pos, "failed_by_cycle": by_cyc,
             "details": dict(details), "examples": examples[:12]}
+
+
+def _where_failed(truth, at: list, b0: int, b1: int) -> tuple:
+    """(failures by the capture block their slot starts in, by judged
+    cycle) of ``at``: (receiver symbol of the slot's start, or of an
+    off-slot frame; the block that delivered a wrong frame, None for a
+    missed slot).  The span b0..b1 holds ``k`` cycles, as the judge
+    does: a wrong frame counts in the cycle of the block that delivered
+    it (cycle c: blocks b0 + c x cycle_blocks on), a missed slot in the
+    cycle of its start, counted back from the span's last judged start
+    (cycle c: the starts ``k - 1 - c`` cycles before it, or fewer).  So
+    every cycle but the first is whole, and the first lacks the slots
+    in the span's two edges (``EDGE``).  Outside the span a count goes
+    to the nearest cycle."""
+    bs, cb, ns = truth.block_syms, truth.cycle_blocks, truth.cycle_syms
+    k = max(1, -(-(b1 - b0 + 1) // cb))
+    hi = (b1 + 1) * bs - EDGE - SLOT_SYMS
+    by_pos, by_cyc = [0] * cb, [0] * k
+    for s, blk in at:
+        by_pos[(s // bs) % cb] += 1
+        c = (blk - b0) // cb if blk is not None else k - 1 - (hi - s) // ns
+        by_cyc[min(max(c, 0), k - 1)] += 1
+    return by_pos, by_cyc
 
 
 def _judge_data(want: tuple, rec: tuple) -> str | None:

@@ -9,12 +9,16 @@ of distinct blocks, builds the program's ``Pipeline`` as the
 configuration states, and warms it up on the capture's first blocks.
 The window then feeds ``Pipeline.process_block`` fresh host blocks in a
 closed loop until ``--seconds`` have passed; every block that started
-in the window is finished and counted.  After the window the peak
-device memory is read, the program's state is freed, and the frames of
-a sample of carriers are judged against the reference
-(tebench.check).  ``--trace 1`` adds span timings, a device trace of a
-short stretch of the window, and reports the per-layer metrics instead
-of the end-to-end ones.
+in the window is finished and counted.  After the window, untimed and
+with the program's tracer off, the program takes as many more blocks
+(fewer than a cycle) as end the judged span on a whole cycle of the
+capture, so that a run judges the same positions of the cycle however
+many blocks its window held.  Then the peak device memory is read, the
+program's state is freed, and the frames of a sample of carriers over
+the judged span are judged against the reference (tebench.check).
+``--trace 1`` adds span timings, a device trace of a short stretch of
+the window, and reports the per-layer metrics instead of the end-to-end
+ones.
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ class Run:
         self.trace = None                # devtrace result or None
         self.traced_blocks = 0
         self.counts = {}                 # PipelineStats a window block
+        self.extra_blocks = 0            # judged blocks past the window
+        self.extra_s = 0.0               # their wall seconds
 
     def span_ms_per_block(self, *names) -> float | None:
         vals = [self.recorder.span_ms(n, self.t_lo, self.t_hi)
@@ -228,11 +234,25 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     if steal0 is not None:
         run.steal_s = steal_seconds() - steal0
     run.blocks = i - warm
-    b_lo, b_hi = warm, i - 1
     if stretch is not None:
         run.trace = stretch.result
     run.counts = {k: (getattr(pipe.stats, k) - c0[k]) / max(run.blocks, 1)
                   for k in COUNTS}
+    if trace:
+        from tebench import progtrace
+        progtrace.switch_off()
+    # the judged span ends on a whole cycle: untimed blocks past the
+    # window, which no metric reads, so that every run judges the same
+    # positions of the cycle
+    t_ext = time.perf_counter()
+    while (i - warm) % cb:
+        pipe.process_block(host[i % cb])
+        i += 1
+    if cuda:
+        torch.cuda.synchronize()
+    run.extra_blocks = i - warm - run.blocks
+    run.extra_s = time.perf_counter() - t_ext
+    b_lo, b_hi = warm, i - 1
     peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
     bad = forbidden_modules()
     pipe.close()
@@ -311,7 +331,12 @@ def main(argv=None, t_start: float | None = None) -> int:
     info = {"workload": cell.name, "seed": args.seed,
             "card": power_limit(), "blocks": run.blocks,
             "wall_s": run.wall_s, "setup_s": run.setup_s,
-            "watched": len(res["watch"]), "details": v["details"],
+            "watched": len(res["watch"]),
+            "judged_blocks": run.blocks + run.extra_blocks,
+            "extra_blocks": run.extra_blocks, "extra_s": run.extra_s,
+            "failed_by_position": v["failed_by_position"],
+            "failed_by_cycle": v["failed_by_cycle"],
+            "details": v["details"],
             "examples": v["examples"],
             "traced_blocks": run.traced_blocks,
             "per_block": run.counts,

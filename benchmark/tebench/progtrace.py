@@ -8,7 +8,9 @@ this module switches it on.  The harness imports a per-layer metric's
 reader only in a traced run (``cells.span_points``, before the warm-up
 blocks, and ``metrics_of``), so the program traces itself in every
 traced run and in no untraced one; each reader also calls ``switch_on``
-when it is loaded.
+when it is loaded.  The harness switches it off once the window has
+closed (``switch_off``), before the blocks that end the judged span on
+a whole cycle.
 
 A reading covers the blocks whose ``block`` span started in the window
 ``[run.t_lo, run.t_hi)`` and is divided by ``run.blocks``, as
@@ -33,6 +35,14 @@ def switch_on() -> None:
     tr = _tracer()
     if tr is not None:
         tr.enable()
+
+
+def switch_off() -> None:
+    """Stop recording blocks (the harness's blocks past the window must
+    not push the window's out of the tracer's ring)."""
+    tr = _tracer()
+    if tr is not None:
+        tr.enable(False)
 
 
 switch_on()

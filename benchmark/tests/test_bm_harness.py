@@ -333,6 +333,153 @@ def test_broken_timed_path_is_not_correct(tmp_path, monkeypatch, fault):
     assert list(out)[-1] == "check"
 
 
+# -- the judged span: whole cycles past the window --------------------------------
+
+JUMP = 10_000.0        # clock seconds each block takes under _blocks_clock
+
+
+def _blocks_clock(mp):
+    """``time.perf_counter`` jumps JUMP seconds at every
+    ``Pipeline.process_block``, so that a window of ``--seconds`` (n - 0.5)
+    x JUMP holds exactly n blocks however fast this CPU is; the program's
+    tracer and the harness read the same clock."""
+    from tetraear_tpu_torch.api import Pipeline
+    real, jumps = time.perf_counter, [0.0]
+    process = Pipeline.process_block
+
+    def slow(self, block):
+        jumps[0] += JUMP
+        return process(self, block)
+    mp.setattr(time, "perf_counter", lambda: real() + jumps[0])
+    mp.setattr(Pipeline, "process_block", slow)
+
+
+def _drop_position(mp, position: int, cell):
+    """The timed path loses every frame that starts in one capture block
+    of the cycle: failures at a fixed position, as a sound program's
+    are."""
+    from tetraear_tpu_torch.runtime.stream import DecodeRunner
+    frames_of = DecodeRunner.frames_of
+    bs = int(cell.config["block_len"]) * 18000 // int(
+        cell.config["sample_rate"])
+    cb = int(cell.traffic["cycle_blocks"])
+
+    def dropped(self, host):
+        return [f for f in frames_of(self, host)
+                if int(f["stream_symbol"]) // bs % cb != position]
+    mp.setattr(DecodeRunner, "frames_of", dropped)
+
+
+@pytest.fixture(scope="module")
+def two_windows(tmp_path_factory):
+    """One seed, windows of 4 and 8 blocks (cycle 3: they end at cycle
+    positions 1 and 2), traced, with the frames of cycle position 1
+    dropped: {blocks: (cell, result, tracer blocks kept)}."""
+    from tetraear_tpu_torch.runtime import profiling
+    tr = profiling.tracer()
+    out = {}
+    for n in (4, 8):
+        cell, _ = _tiny_root(tmp_path_factory.mktemp(f"w{n}"))
+        with pytest.MonkeyPatch.context() as mp:
+            _blocks_clock(mp)
+            _drop_position(mp, 1, cell)
+            tr.enable()
+            tr.reset()
+            res = harness.run_cell(cell, SEED, (n - 0.5) * JUMP, trace=True,
+                                   device="cpu", t_start=time.perf_counter())
+            out[n] = (cell, res, list(tr.blocks))
+        tr.enable(False)
+        tr.reset()
+    return out
+
+
+def test_judged_span_is_whole_cycles(two_windows):
+    for n, (cell, res, _) in two_windows.items():
+        run, v = res["run"], res["verdict"]
+        cb = int(cell.traffic["cycle_blocks"])
+        judged = run.blocks + run.extra_blocks
+        assert run.blocks == n and 0 <= run.extra_blocks < cb
+        assert judged % cb == 0 and judged == -(-n // cb) * cb
+        assert len(v["failed_by_cycle"]) == judged // cb
+        assert len(v["failed_by_position"]) == cb
+        assert sum(v["failed_by_cycle"]) == sum(v["failed_by_position"]) \
+            == v["missed"] + v["wrong"] > 0
+
+
+def test_blocks_past_the_window_are_in_no_metric(two_windows):
+    """The extension's blocks are untimed and untraced: the window's
+    blocks, block times and the tracer's records are those of the window
+    alone, and the tracer is off after it."""
+    from tebench import progtrace
+    from tetraear_tpu_torch.runtime import profiling
+    for n, (cell, res, kept) in two_windows.items():
+        run = res["run"]
+        warm = int(cell.config["warmup_blocks"])
+        assert run.extra_blocks > 0
+        assert len(run.block_times) == len(run.block_cpu) == run.blocks == n
+        assert run.wall_s < (n + 0.5) * JUMP
+        assert run.extra_s >= run.extra_blocks * JUMP
+        assert len(kept) == warm + n
+        assert all(b.start < run.t_hi for b in kept)
+    tr = profiling.tracer()
+    cell, res, kept = two_windows[8]
+    tr.blocks.extend(kept)
+    try:
+        assert len(progtrace._window(res["run"])) == res["run"].blocks
+    finally:
+        tr.reset()
+    assert not tr.on
+
+
+def test_failed_by_cycle_same_however_the_window_ends(two_windows):
+    """Windows of 4 and 8 blocks judge 2 and 3 whole cycles: every cycle
+    after the first fails on the same slots, the dropped position holds
+    the failures, and the longer run attempts one cycle's slots more."""
+    (cell, a, _), (_, b, _) = two_windows[4], two_windows[8]
+    va, vb = a["verdict"], b["verdict"]
+    fa, fb = va["failed_by_cycle"], vb["failed_by_cycle"]
+    assert (len(fa), len(fb)) == (2, 3)
+    assert fa[1] == fb[1] == fb[2] > 0, (fa, fb)
+    assert fa[0] == fb[0], (fa, fb)
+    for v in (va, vb):
+        pos = v["failed_by_position"]
+        assert pos[1] == max(pos) > 0, pos
+    truth = a["truth"]
+    sent = sum(truth.n_slots for c, role in a["watch"].items()
+               if role != "idle")
+    assert vb["expected"] - va["expected"] == sent
+    assert va["failed_share"] != vb["failed_share"]
+
+
+def test_a_wrong_frame_counts_in_the_cycle_that_delivered_it():
+    """A CRC-passing frame on no slot in each cycle's last symbols: the
+    last cycle's starts past the span's last judged slot start, but its
+    block is judged, and it counts there, once a cycle."""
+    from tebench.frozen import sds
+    tr = json.loads((DATA / "tiny.json").read_text())
+    _, _, truth = traffic.make(8, 2016, tr, SEED, 128.0)
+    ci, car = next((c, k) for c, k in sorted(truth.carriers.items())
+                   if k.role == "sds")
+    text = sds.parse_sds_data(car.payload)
+    bs, ns, cb = truth.block_syms, truth.cycle_syms, truth.cycle_blocks
+    lat = car.lead + 255 * np.arange(truth.n_slots)
+    for k in (2, 3):
+        frames = []
+        for c in range(k):
+            for j, p in enumerate(lat):
+                s = c * ns + int(p)
+                ok = bool(car.crc_ok[j])
+                frames.append(((s + 254) // bs, ci, s, ok,
+                               text if ok else None, False, False, None))
+            s = c * ns + int(lat[-1]) + 100
+            frames.append(((s + 254) // bs, ci, s, True, text, False, False,
+                           None))
+        v = check.compare(truth, {ci: "sds"}, frames, [], 0, k * cb - 1)
+        assert v["details"] == {"crc_off_slot": k}, v
+        assert v["failed_by_cycle"] == [1] * k
+        assert v["failed_by_position"] == [0] * (cb - 1) + [k]
+
+
 # -- what the runs load ----------------------------------------------------------
 
 def test_imports_nothing_forbidden():

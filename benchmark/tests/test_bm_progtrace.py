@@ -4,9 +4,9 @@
     python -m pytest benchmark/tests/test_bm_progtrace.py -q
 
 A traced run switches the program's tracer on (the readers are loaded
-before the warm-up blocks) and reports every such metric, but
-``step_ms.spans``, whose CUDA events the CPU does not have; an untraced
-run loads no reader and leaves the tracer off.
+before the warm-up blocks) and off when the window closes, and reports
+every such metric but ``step_ms.spans``, whose CUDA events the CPU does
+not have; an untraced run loads no reader and leaves the tracer off.
 """
 
 from __future__ import annotations
@@ -62,7 +62,8 @@ def test_traced_run_reports_the_program_spans(tmp_path, tracer):
     cell = _cell(tmp_path)
     res = harness.run_cell(cell, SEED, 2.0, trace=True, device="cpu",
                            t_start=time.perf_counter())
-    assert tracer.on
+    # on for the window, off for the blocks that end the judged span
+    assert not tracer.on
     run = res["run"]
     assert len(tracer.window(run.t_lo, run.t_hi)) == run.blocks >= 1
     out, _ = harness.result_line(cell, res, True, "cpu", 1)
